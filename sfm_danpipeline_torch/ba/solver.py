@@ -1,0 +1,207 @@
+"""Levenberg-Marquardt with Schur-complement elimination of points.
+
+Port of sfm_danpipeline_tpu/ba/solver.py (the reference's Ceres
+DENSE_SCHUR semantics): normal-equation blocks from per-observation
+Jacobians, the reduced camera (+ shared focal) system by point
+elimination, a dense Cholesky solve, back-substitution, and the
+accept/reject damping schedule. The reference's `lax.while_loop` is a host
+loop here, with one device->host read per iteration for the stop test.
+
+The segment sums use `index_add_`, which is atomic on CUDA: BA results
+are not bitwise repeatable there (the sum order varies run to run).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from sfm_danpipeline_torch.ba.problem import BAProblem
+from sfm_danpipeline_torch.ba.residuals import cost as ba_cost
+from sfm_danpipeline_torch.ba.residuals import jacobian_blocks
+from sfm_danpipeline_torch.config import BAConfig
+
+
+class NormalBlocks(NamedTuple):
+    U: torch.Tensor  # (C, 6, 6)
+    V: torch.Tensor  # (P, 3, 3)
+    G: torch.Tensor  # (P, C, 6, 3) camera-point coupling per point
+    Hcf: torch.Tensor  # (C, 6)
+    Hpf: torch.Tensor  # (P, 3)
+    Hff: torch.Tensor  # ()
+    g_c: torch.Tensor  # (C, 6)
+    g_p: torch.Tensor  # (P, 3)
+    g_f: torch.Tensor  # ()
+
+
+def _segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device).index_add_(0, seg, x)
+
+
+def build_normal_blocks(problem: BAProblem) -> Tuple[NormalBlocks, torch.Tensor]:
+    """Gauss-Newton normal-equation blocks and the current cost."""
+    C, P = problem.n_cameras, problem.n_points
+    r, Jc, Jf, Jp = jacobian_blocks(
+        problem.cameras, problem.focal, problem.points, problem.obs_cam,
+        problem.obs_pt, problem.obs_xy, problem.obs_w,
+    )
+    # Frozen parameters: zero their Jacobian columns.
+    Jc = Jc * (~problem.fix_cam[problem.obs_cam]).to(Jc.dtype)[:, None, None]
+    Jf = Jf * (~problem.fix_focal).to(Jf.dtype)
+    if problem.fix_pt is not None:
+        Jp = Jp * (~problem.fix_pt[problem.obs_pt]).to(Jp.dtype)[:, None, None]
+    JcT = Jc.transpose(1, 2)
+    JpT = Jp.transpose(1, 2)
+    oc, op = problem.obs_cam, problem.obs_pt
+    W = JcT @ Jp  # (O, 6, 3)
+    G = torch.zeros((P * C, 6, 3), dtype=W.dtype, device=W.device)
+    G.index_add_(0, op * C + oc, W)
+    blocks = NormalBlocks(
+        U=_segment_sum(JcT @ Jc, oc, C),
+        V=_segment_sum(JpT @ Jp, op, P),
+        G=G.reshape(P, C, 6, 3),
+        Hcf=_segment_sum((JcT @ Jf)[..., 0], oc, C),
+        Hpf=_segment_sum((JpT @ Jf)[..., 0], op, P),
+        Hff=torch.sum(Jf * Jf),
+        g_c=_segment_sum((JcT @ r[..., None])[..., 0], oc, C),
+        g_p=_segment_sum((JpT @ r[..., None])[..., 0], op, P),
+        g_f=torch.sum(Jf[..., 0] * r),
+    )
+    return blocks, 0.5 * torch.sum(r * r)
+
+
+def _inv3(M: torch.Tensor) -> torch.Tensor:
+    """Batched closed-form 3x3 inverse (adjugate / det)."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    Cc = d * h - e * g
+    D = -(b * i - c * h)
+    E = a * i - c * g
+    F = -(a * h - b * g)
+    Gg = b * f - c * e
+    H = -(a * f - c * d)
+    I = a * e - b * d  # noqa: E741
+    det = a * A + b * B + c * Cc
+    det = torch.where(torch.abs(det) < 1e-20, torch.full_like(det, 1e-20), det)
+    adj = torch.stack(
+        [
+            torch.stack([A, D, Gg], dim=-1),
+            torch.stack([B, E, H], dim=-1),
+            torch.stack([Cc, F, I], dim=-1),
+        ],
+        dim=-2,
+    )
+    return adj / det[..., None, None]
+
+
+def schur_solve(
+    blocks: NormalBlocks, lam: torch.Tensor, fix_cam: torch.Tensor, fix_focal: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Solve the Marquardt-damped normal equations by point elimination.
+    Returns (delta_cam (C,6), delta_f (), delta_pt (P,3))."""
+    C = blocks.U.shape[0]
+    P = blocks.V.shape[0]
+    dt, dev = blocks.U.dtype, blocks.U.device
+    eyeC = torch.eye(6, dtype=dt, device=dev)
+    eyeP = torch.eye(3, dtype=dt, device=dev)
+    dU = blocks.U + lam * blocks.U * eyeC + 1e-8 * eyeC
+    dV = blocks.V + lam * blocks.V * eyeP + 1e-8 * eyeP
+    dff = blocks.Hff * (1.0 + lam) + 1e-8
+    fixC = fix_cam.to(dt)[:, None, None]
+    dU = dU * (1.0 - fixC) + eyeC * fixC
+    dff = torch.where(fix_focal, torch.ones_like(dff), dff)
+
+    Vinv = _inv3(dV)
+    Gf = blocks.G.reshape(P, C * 6, 3)
+    GV = torch.einsum("pac,pcd->pad", Gf, Vinv)
+    S_cc = -torch.einsum("pac,pbc->ab", GV, Gf) + torch.block_diag(*dU.unbind(0))
+    S_cf = blocks.Hcf.reshape(C * 6) - torch.einsum("pac,pc->a", GV, blocks.Hpf)
+    S_ff = dff - torch.einsum("pc,pcd,pd->", blocks.Hpf, Vinv, blocks.Hpf)
+    rhs_c = -blocks.g_c.reshape(C * 6) + torch.einsum("pac,pc->a", GV, blocks.g_p)
+    rhs_f = -blocks.g_f + torch.einsum("pc,pcd,pd->", blocks.Hpf, Vinv, blocks.g_p)
+
+    S = torch.cat(
+        [
+            torch.cat([S_cc, S_cf[:, None]], dim=1),
+            torch.cat([S_cf, S_ff[None]])[None, :],
+        ]
+    )
+    rhs = torch.cat([rhs_c, rhs_f[None]])
+    L, info = torch.linalg.cholesky_ex(S)
+    delta = torch.cholesky_solve(rhs[:, None], L)[:, 0]
+    # A failed factorization yields NaN (as the reference's Cholesky does),
+    # so the step's cost is NaN and the LM loop rejects it.
+    delta = torch.where(info == 0, delta, torch.full_like(delta, float("nan")))
+    delta_c = delta[: C * 6].reshape(C, 6)
+    delta_f = delta[-1]
+    Wt_dc = torch.einsum("pcab,ca->pb", blocks.G, delta_c)
+    rhs_p = -blocks.g_p - Wt_dc - blocks.Hpf * delta_f
+    delta_p = torch.einsum("pcd,pd->pc", Vinv, rhs_p)
+    delta_c = delta_c * (~fix_cam).to(dt)[:, None]
+    delta_f = torch.where(fix_focal, torch.zeros_like(delta_f), delta_f)
+    return delta_c, delta_f, delta_p
+
+
+class BAResult(NamedTuple):
+    cameras: torch.Tensor
+    focal: torch.Tensor
+    points: torch.Tensor
+    initial_cost: torch.Tensor
+    final_cost: torch.Tensor
+    iterations: int
+    converged: torch.Tensor
+
+
+def run_ba(
+    problem: BAProblem,
+    config: BAConfig = BAConfig(),
+    max_iterations: Optional[int] = None,
+) -> BAResult:
+    """LM loop: assemble -> Schur solve -> accept/reject, until the
+    relative decrease falls under rtol in the Newton regime, lambda hits
+    its cap, or the iteration budget (`max_iterations`, default
+    config.max_iterations) runs out."""
+    obs = (problem.obs_cam, problem.obs_pt, problem.obs_xy, problem.obs_w)
+
+    def cost_of(cameras, focal, points):
+        return ba_cost(cameras, focal, points, *obs)
+
+    budget = config.max_iterations if max_iterations is None else int(max_iterations)
+    cameras, focal, points = problem.cameras, problem.focal, problem.points
+    c0 = cost_of(cameras, focal, points)
+    cur = c0
+    lam = torch.tensor(config.init_lambda, dtype=torch.float32, device=c0.device)
+    it = 0
+    done = torch.tensor(False, device=c0.device)
+    while it < budget:
+        prob = BAProblem(
+            cameras=cameras, focal=focal, points=points, obs_cam=problem.obs_cam,
+            obs_pt=problem.obs_pt, obs_xy=problem.obs_xy, obs_w=problem.obs_w,
+            fix_cam=problem.fix_cam, fix_focal=problem.fix_focal, fix_pt=problem.fix_pt,
+        )
+        blocks, _ = build_normal_blocks(prob)
+        dc, df, dp = schur_solve(blocks, lam, problem.fix_cam, problem.fix_focal)
+        new_cams, new_focal, new_points = cameras + dc, focal + df, points + dp
+        new_cost = cost_of(new_cams, new_focal, new_points)
+        accept = new_cost < cur
+        rel_decrease = (cur - new_cost) / torch.clamp(cur, min=1e-20)
+        cameras = torch.where(accept, new_cams, cameras)
+        focal = torch.where(accept, new_focal, focal)
+        points = torch.where(accept, new_points, points)
+        cur = torch.where(accept, new_cost, cur)
+        lam = torch.where(accept, lam * config.lambda_down, lam * config.lambda_up)
+        lam = torch.clamp(lam, config.min_lambda, config.max_lambda)
+        # Convergence only in the Newton regime (small lambda).
+        done = (accept & (rel_decrease < config.rtol) & (lam <= config.init_lambda)) | (
+            lam >= config.max_lambda
+        )
+        it += 1
+        if bool(done):
+            break
+    return BAResult(
+        cameras=cameras, focal=focal, points=points, initial_cost=c0,
+        final_cost=cur, iterations=it, converged=done | (cur < c0),
+    )

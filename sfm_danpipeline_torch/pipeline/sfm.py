@@ -1,0 +1,570 @@
+"""End-to-end incremental SfM orchestrator (sparse stage).
+
+Port of the default path of sfm_danpipeline_tpu/pipeline/sfm.py
+`SfMPipeline.run` (`StructFromMotion::map3D`, src/Sfm.cpp:9-109): SIFT ->
+all-pairs matching (the hand-written CUDA kNN kernel on a card) -> pair
+scoring + epipolar prefilter -> validated seed bootstrap -> incremental
+PnP + triangulation + per-view BA -> final global BA.
+
+Not ported yet, each raising NotImplementedError that names its ROADMAP
+step: other detectors / matchers (Queue 1 step 14), guided bridging (not
+ported unless a config needs it), checkpoints (step 13), precomputed
+multi-host inputs (step 15), rotation averaging (step 11). The
+secondary-component Sim(3) merge waits for step 8: views left outside the
+main component are reported as unmerged (`metrics["n_unmerged_views"]`),
+with a warning, and stay unregistered.
+
+The reference's fixed-capacity buckets and fused-dispatch packaging are
+TPU workarounds and are not ported: BA works on the exact observation
+table, and each step runs as eager torch ops.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from sfm_danpipeline_torch.ba.problem import BAProblem
+from sfm_danpipeline_torch.ba.solver import run_ba
+from sfm_danpipeline_torch.config import PipelineConfig
+from sfm_danpipeline_torch.io.calibration import Intrinsics
+from sfm_danpipeline_torch.io.images import ImageBatch
+from sfm_danpipeline_torch.ops.interp import bilinear_sample
+from sfm_danpipeline_torch.ops.matching import match_all_pairs
+from sfm_danpipeline_torch.ops.projection import undistort_points
+from sfm_danpipeline_torch.ops.select import top_k_indices
+from sfm_danpipeline_torch.ops.sift import Keypoints, detect_and_compute_batch
+from sfm_danpipeline_torch.pipeline.bootstrap import bootstrap_pair, score_pairs
+from sfm_danpipeline_torch.pipeline.incremental import (
+    build_match_tables,
+    epipolar_prefilter_table,
+    register_and_triangulate,
+)
+from sfm_danpipeline_torch.pipeline.tracks import (
+    ReconstructionState,
+    init_state,
+    live_observations,
+    observation_table_compact,
+    prune_observations,
+)
+
+log = logging.getLogger("sfm_danpipeline_torch")
+
+
+def _k_matrix(focal: torch.Tensor, pp: torch.Tensor) -> torch.Tensor:
+    z = torch.zeros_like(focal)
+    o = torch.ones_like(focal)
+    return torch.stack(
+        [torch.stack([focal, z, pp[0]]), torch.stack([z, focal, pp[1]]), torch.stack([z, z, o])]
+    )
+
+
+def ba_step(
+    state: ReconstructionState,
+    keypoints_xy: torch.Tensor,
+    pp: torch.Tensor,
+    fix_cam: torch.Tensor,
+    config: PipelineConfig,
+    max_iterations: int,
+    local_view: Optional[int] = None,
+):
+    """Bundle adjustment + map hygiene on the exact observation table.
+
+    `local_view` selects local-window BA: only that view, its
+    (local_window - 1) most covisible registered cameras and the points it
+    observes move; everything else is frozen. Returns (state, initial_cost,
+    final_cost, iterations, n_obs)."""
+    ba_cfg = config.ba
+    B = int(state.n_points)  # points occupy slots [0, n_points)
+    V = state.n_views
+    obs_cam, obs_pt, xy, w = observation_table_compact(state, keypoints_xy, pp, n_points=B)
+    fix_cam_eff = fix_cam
+    fix_pt = None
+    if local_view is not None:
+        has = state.track_feat[:B] >= 0
+        pt_local = has[:, local_view] & state.points_valid[:B]
+        shared = torch.sum(has & pt_local[:, None], dim=0)
+        shared = torch.where(state.camera_valid, shared, torch.full_like(shared, -1))
+        # top_k tie order matters for which equally covisible camera
+        # joins the window (ops/select.py).
+        topv = top_k_indices(shared, min(ba_cfg.local_window, V))
+        active = torch.zeros((V,), dtype=torch.bool, device=shared.device)
+        active[topv] = True
+        active[local_view] = True
+        fix_cam_eff = fix_cam | ~(active & state.camera_valid)
+        fix_pt = ~pt_local
+    prob = BAProblem(
+        cameras=state.cameras, focal=state.focal, points=state.points_xyz[:B],
+        obs_cam=obs_cam, obs_pt=obs_pt, obs_xy=xy, obs_w=w, fix_cam=fix_cam_eff,
+        fix_focal=torch.tensor(not ba_cfg.optimize_focal, device=pp.device),
+        fix_pt=fix_pt,
+    )
+    res = run_ba(prob, ba_cfg, max_iterations=max_iterations)
+    points = state.points_xyz.clone()
+    points[:B] = res.points
+    state = dataclasses.replace(state, cameras=res.cameras, focal=res.focal, points_xyz=points)
+    state = prune_observations(
+        state, keypoints_xy, _k_matrix(state.focal, pp),
+        max_error_px=config.geometry.max_reprojection_error_px,
+    )
+    return state, res.initial_cost, res.final_cost, res.iterations, torch.sum(w)
+
+
+def score_and_prefilter(
+    gen, strict, loose, keypoints_xy, pair_i, pair_j, K, dist, image_max_dim,
+    config: PipelineConfig, n_views: int,
+):
+    """Pair scoring on the strict matches and the all-pairs epipolar
+    prefilter of the loose ones (both read the fresh match tables)."""
+    scores = score_pairs(
+        gen, strict, keypoints_xy, pair_i, pair_j, K, dist, image_max_dim, config
+    )
+    vt_loose = epipolar_prefilter_table(
+        gen, loose.idx_a, loose.idx_b, loose.valid, keypoints_xy, pair_i, pair_j,
+        K, dist, config, n_views,
+    )
+    return scores, vt_loose
+
+
+def bootstrap_adjust_step(
+    gen, state, matches_one, keypoints_xy, colors, view_i: int, view_j: int,
+    pp, K, dist, fix_cam, basin: int, config: PipelineConfig,
+):
+    """Two-view bootstrap, then the first intermediate BA when the pose and
+    angle gates accept. Returns (state, ok, med_angle_deg)."""
+    state, ok, med_ang = bootstrap_pair(
+        gen, state, matches_one, keypoints_xy, colors, view_i, view_j, K, dist,
+        config, basin,
+    )
+    if bool(ok):
+        state = ba_step(
+            state, keypoints_xy, pp, fix_cam, config, config.ba.intermediate_iterations
+        )[0]
+    return state, ok, med_ang
+
+
+def register_adjust_step(
+    gen, state, new_view: int, done_views, tables, keypoints_xy, colors, pp, K,
+    dist, image_max_dim: float, config: PipelineConfig, fix_cam,
+    local_view: Optional[int], run_ba: bool = True,
+):
+    """PnP register + triangulate + (when registration succeeds) the
+    per-view BA, local-window when `local_view` is set. Returns (state,
+    (ok, n_inliers, n_support, n_points, n_obs))."""
+    ft_a, ft_b, vt_strict, vt_loose = tables
+    state, stats = register_and_triangulate(
+        gen, state, new_view, done_views, ft_a, ft_b, vt_loose, vt_strict,
+        keypoints_xy, colors, K, dist, image_max_dim, config,
+    )
+    if stats[0] and run_ba:
+        state = ba_step(
+            state, keypoints_xy, pp, fix_cam, config,
+            config.ba.intermediate_iterations, local_view=local_view,
+        )[0]
+        stats = stats[:4] + (int(torch.sum(live_observations(state))),)
+    return state, stats
+
+
+@dataclasses.dataclass
+class SfMResult:
+    state: ReconstructionState
+    keypoints: Keypoints
+    points: np.ndarray  # (N, 3) valid points
+    colors: np.ndarray  # (N, 3)
+    registered_views: List[int]
+    metrics: Dict[str, float]
+    # Baseline-pair match endpoints (xy_a, xy_b, valid) for visualization.
+    baseline_matches: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
+    # Raw detected keypoint positions when distortion canonicalized them.
+    raw_xy: Optional[np.ndarray] = None
+
+
+def _keypoint_colors(color: torch.Tensor, kp: Keypoints) -> torch.Tensor:
+    """Per-keypoint RGB samples (V, K, 3) from color images (V, H, W, 3)."""
+    return torch.stack(
+        [
+            torch.stack(
+                [bilinear_sample(color[v, ..., c], kp.xy[v, :, 0], kp.xy[v, :, 1]) for c in range(3)],
+                dim=-1,
+            )
+            for v in range(color.shape[0])
+        ]
+    )
+
+
+def _pair_list(n: int) -> Tuple[List[int], List[int]]:
+    """All i<j pairs in the reference's loop order (src/Sfm.cpp:511-512)."""
+    pi, pj = [], []
+    for i in range(n - 1):
+        for j in range(i + 1, n):
+            pi.append(i)
+            pj.append(j)
+    return pi, pj
+
+
+class SfMPipeline:
+    """Host-side orchestrator. Usage:
+
+        pipe = SfMPipeline(config, device="cuda")
+        result = pipe.run(images, intrinsics)
+    """
+
+    def __init__(
+        self,
+        config: PipelineConfig = PipelineConfig(),
+        checkpoint_path: Optional[str] = None,
+        device: str | torch.device = "cpu",
+    ):
+        if checkpoint_path is not None:
+            raise NotImplementedError(
+                "checkpoint/resume is not ported yet (ROADMAP Queue 1 step 13)"
+            )
+        self.config = config
+        self.device = torch.device(device)
+
+    def _sync(self) -> None:
+        """Wait for queued device work so host timers read true stage times."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _check_config(self) -> None:
+        cfg = self.config
+        if cfg.features.detector != "sift":
+            raise NotImplementedError(
+                f"detector {cfg.features.detector!r} is not ported yet "
+                "(ROADMAP Queue 1 step 14)"
+            )
+        if cfg.matching.method != "bf":
+            raise NotImplementedError(
+                f"matching method {cfg.matching.method!r} is not ported yet "
+                "(ROADMAP Queue 1 step 14)"
+            )
+        if cfg.geometry.guided_enable:
+            raise NotImplementedError(
+                "guided bridge registration is not ported (ROADMAP Queue 1, "
+                "'Not to port, unless a config needs them')"
+            )
+
+    # ------------------------------------------------------------------
+    def run(
+        self,
+        images: ImageBatch,
+        intrinsics: Intrinsics,
+        run_ba_every_view: bool = True,
+        precomputed_keypoints: Optional[Keypoints] = None,
+        precomputed_matches=None,
+        precomputed_canonical: bool = False,
+        precomputed_raw_xy=None,
+    ) -> SfMResult:
+        if (
+            precomputed_keypoints is not None or precomputed_matches is not None
+            or precomputed_canonical or precomputed_raw_xy is not None
+        ):
+            raise NotImplementedError(
+                "precomputed (multi-host) inputs are not ported yet "
+                "(ROADMAP Queue 1 step 15)"
+            )
+        self._check_config()
+        cfg = self.config
+        dev = self.device
+        t_start = time.time()
+        metrics: Dict[str, float] = {}
+        V = images.n_images
+        K = torch.as_tensor(intrinsics.K, dtype=torch.float32, device=dev)
+        dist = torch.as_tensor(intrinsics.dist, dtype=torch.float32, device=dev)
+        pp = torch.tensor([intrinsics.cx, intrinsics.cy], dtype=torch.float32, device=dev)
+        max_dim = float(max(images.shape))
+        gen = torch.Generator(device=dev).manual_seed(cfg.geometry.seed)
+
+        # 1. Features (src/Sfm.cpp:257-327), the whole batch at once.
+        t0 = time.time()
+        kp = detect_and_compute_batch(
+            torch.as_tensor(images.gray, device=dev), cfg.features
+        )
+        self._sync()
+        metrics["t_features"] = time.time() - t0
+        metrics["n_keypoints_mean"] = float(kp.valid.sum(-1).float().mean())
+        log.info(
+            "features: %.2fs, mean %d kp/image",
+            metrics["t_features"], metrics["n_keypoints_mean"],
+        )
+        colors = _keypoint_colors(torch.as_tensor(images.color, device=dev), kp)
+
+        # Lens-distortion canonicalization: undistort every keypoint once
+        # into ideal pinhole pixels; the rest of the pipeline then runs
+        # distortion-free. Colors were sampled at the raw detections.
+        raw_xy = None
+        if bool(np.any(np.asarray(intrinsics.dist) != 0.0)):
+            raw_xy = kp.xy.cpu().numpy()
+            xn = undistort_points(kp.xy, K, dist)
+            ideal = torch.stack(
+                [xn[..., 0] * K[0, 0] + K[0, 2], xn[..., 1] * K[1, 1] + K[1, 2]], dim=-1
+            )
+            kp = dataclasses.replace(kp, xy=ideal)
+            dist = torch.zeros_like(dist)
+            log.info("distortion: keypoints canonicalized to ideal pixels")
+
+        # 2. All-pairs matching (src/Sfm.cpp:509-583): one pass at the
+        # loose registration ratio; the strict reference set is a mask.
+        t0 = time.time()
+        pi, pj = _pair_list(V)
+        pi_t = torch.tensor(pi, dtype=torch.int32, device=dev)
+        pj_t = torch.tensor(pj, dtype=torch.int32, device=dev)
+        loose = max(cfg.matching.ratio, cfg.matching.registration_ratio)
+        matches = match_all_pairs(
+            kp.descriptors, kp.valid, pi_t, pj_t, ratio=loose,
+            max_matches=cfg.matching.max_matches, strict_ratio=cfg.matching.ratio,
+            xy=kp.xy, dup_radius=cfg.matching.dup_radius,
+            dedup=cfg.matching.dedup_matches,
+        )
+        self._sync()
+        metrics["t_matching"] = time.time() - t0
+        metrics["n_pairs"] = len(pi)
+        log.info("matching: %.2fs over %d pairs", metrics["t_matching"], len(pi))
+
+        # 3. Pair scoring + baseline (src/Sfm.cpp:408-489) on the strict set,
+        # and the all-pairs epipolar prefilter of the loose set.
+        strict = matches.at_ratio(cfg.matching.ratio)
+        t0 = time.time()
+        scores, vt_loose = score_and_prefilter(
+            gen, strict, matches, kp.xy, pi, pj, K, dist, max_dim, cfg, V
+        )
+        ft_a, ft_b, _ = build_match_tables(matches, pi, pj, V)
+        _, _, vt_strict = build_match_tables(strict, pi, pj, V)
+        self._ctx = dict(
+            gen=gen, tables=(ft_a, ft_b, vt_strict, vt_loose), kp=kp,
+            colors=colors, pp=pp, K=K, dist=dist, max_dim=max_dim,
+        )
+        pair_of = {(a, b): n for n, (a, b) in enumerate(zip(pi, pj))}
+        scores_np = scores.pose_inlier_ratio.cpu().numpy()
+        usable_np = scores.usable.cpu().numpy()
+
+        def ranked_pairs(allowed):
+            cand = [
+                (scores_np[p], a, b) for (a, b), p in pair_of.items()
+                if a in allowed and b in allowed and usable_np[p]
+            ]
+            return [(a, b) for _, a, b in sorted(cand, reverse=True)]
+
+        seed = self._try_seed(
+            ranked_pairs(set(range(V))), set(), strict, pair_of, intrinsics,
+            run_ba_every_view,
+        )
+        if seed is None:
+            raise RuntimeError(
+                "baseline reconstruction failed (no seed pair survived "
+                "pose, angle gate, and third-view validation)"
+            )
+        state, done, (vi, vj) = seed
+        one = strict.pair(pair_of[(vi, vj)])
+        baseline_matches = (
+            kp.xy[vi][one.idx_a.long()].cpu().numpy(),
+            kp.xy[vj][one.idx_b.long()].cpu().numpy(),
+            one.valid.cpu().numpy(),
+        )
+        self._sync()
+        metrics["baseline_pair_i"] = vi
+        metrics["baseline_pair_j"] = vj
+        metrics["t_baseline"] = time.time() - t0
+        metrics["n_baseline_points"] = int(state.n_points)
+
+        # 4. Incremental loop (src/Sfm.cpp:893-1009).
+        t0 = time.time()
+        state = self._grow_component(
+            state, done, set(), anchor=vi, run_ba_every_view=run_ba_every_view
+        )
+        self._sync()
+        metrics["t_incremental"] = time.time() - t0
+
+        # 4b. Views outside the main component need the secondary-component
+        # Sim(3) merge, which is not ported yet (ROADMAP Queue 1 step 8).
+        t0 = time.time()
+        metrics["n_components"] = 1
+        metrics["n_merged_components"] = 0
+        unmerged = sorted(set(range(V)) - done)
+        metrics["n_unmerged_views"] = len(unmerged)
+        if unmerged:
+            log.warning(
+                "views %s did not join the main component; the secondary-"
+                "component merge is not ported yet (ROADMAP Queue 1 step 8), "
+                "so they stay unregistered", unmerged,
+            )
+        metrics["t_components"] = time.time() - t0
+
+        # 5. Final global BA.
+        t0 = time.time()
+        if cfg.ba.rotavg_min_views and len(done) >= cfg.ba.rotavg_min_views:
+            raise NotImplementedError(
+                f"rotation averaging fires at >= {cfg.ba.rotavg_min_views} "
+                "registered views and is not ported yet (ROADMAP Queue 1 step 11)"
+            )
+        state, ba_metrics = self._run_global_ba(state, anchor=vi)
+        metrics.update(ba_metrics)
+        self._sync()
+        metrics["t_final_ba"] = time.time() - t0
+
+        valid = state.points_valid.cpu().numpy()
+        pts = state.points_xyz.cpu().numpy()[valid]
+        cols = state.points_rgb.cpu().numpy()[valid]
+        metrics["n_points"] = int(valid.sum())
+        metrics["n_registered"] = len(done)
+        metrics["t_total"] = time.time() - t_start
+        log.info("done: %d views, %d points, %.2fs total", len(done), int(valid.sum()), metrics["t_total"])
+        return SfMResult(
+            state=state, keypoints=kp, points=pts, colors=cols,
+            registered_views=sorted(done), metrics=metrics,
+            baseline_matches=baseline_matches, raw_xy=raw_xy,
+        )
+
+    # ------------------------------------------------------------------
+    def _fix_mask(self, anchor: int) -> torch.Tensor:
+        fix = torch.zeros((self._ctx["kp"].xy.shape[0],), dtype=torch.bool, device=self.device)
+        fix[anchor] = True
+        return fix
+
+    def _try_seed(
+        self, seed_pairs, exclude: set, strict, pair_of, intrinsics,
+        run_ba_every_view: bool, max_attempts: int = 6,
+    ):
+        """Try (seed pair, basin) combinations until one gives a two-view
+        reconstruction that a third view PnP-registers against (pairwise
+        criteria cannot tell the true epipolar interpretation from the
+        low-parallax spurious one; a third view can). Returns
+        (state, done_views, (vi, vj)) or None."""
+        c = self._ctx
+        cfg = self.config
+        V = c["kp"].xy.shape[0]
+        can_validate = V - len(exclude) >= 3
+        for bi, bj in seed_pairs[:max_attempts]:
+            bm = strict.pair(pair_of[(bi, bj)])
+            for basin in (0, 1):
+                st = init_state(
+                    V, cfg.features.max_keypoints, cfg.max_points, intrinsics.fx,
+                    device=self.device,
+                )
+                st, ok, med_ang = bootstrap_adjust_step(
+                    c["gen"], st, bm, c["kp"].xy, c["colors"], bi, bj, c["pp"],
+                    c["K"], c["dist"], self._fix_mask(bi), basin, cfg,
+                )
+                if not bool(ok):
+                    log.info(
+                        "seed (%d, %d) basin %d rejected (pose/angle gate, "
+                        "med angle %.2f deg)", bi, bj, basin, float(med_ang),
+                    )
+                    continue
+                done_b = {bi, bj}
+                if not can_validate:
+                    return st, done_b, (bi, bj)
+                st2 = self._grow_component(
+                    st, done_b, exclude, anchor=bi,
+                    run_ba_every_view=run_ba_every_view, max_new_views=1,
+                )
+                if len(done_b) >= 3:
+                    log.info(
+                        "seed (%d, %d) basin %d validated by view %s (med angle %.2f deg)",
+                        bi, bj, basin, sorted(done_b - {bi, bj}), float(med_ang),
+                    )
+                    return st2, done_b, (bi, bj)
+                log.warning(
+                    "seed (%d, %d) basin %d: no third view registers — rejecting seed",
+                    bi, bj, basin,
+                )
+        return None
+
+    def _grow_component(
+        self,
+        state: ReconstructionState,
+        done: set,
+        exclude: set,
+        anchor: int,
+        run_ba_every_view: bool = True,
+        max_new_views: Optional[int] = None,
+    ) -> ReconstructionState:
+        """Grow one component by PnP registration + triangulation (the
+        reference's addMoreViews loop, src/Sfm.cpp:893-1009); `done` is
+        updated in place. Registration reads the loose prefiltered table,
+        triangulation the strict one. A failed view is retried only after
+        the map has grown."""
+        c = self._ctx
+        V = state.n_views
+        cfg = self.config
+        ba_cfg = cfg.ba
+        n_grown = 0
+        fix = self._fix_mask(anchor)
+        failed: dict = {}
+        progress = True
+        while progress:
+            progress = False
+            stale = {v for v, n in failed.items() if n >= len(done)}
+            while True:
+                if max_new_views is not None and n_grown >= max_new_views:
+                    return state
+                frontier = self._frontier(done, stale | exclude, V)
+                if not frontier:
+                    break
+                new_view = frontier[0]
+                # Local-window BA once the map is big enough, with a periodic
+                # global solve (src/Sfm.cpp:883-888).
+                use_local = (
+                    len(done) + 1 >= ba_cfg.local_ba_min_views
+                    and (n_grown + 1) % ba_cfg.global_ba_every != 0
+                )
+                state, (ok, n_inl, n_support, _, _) = register_adjust_step(
+                    c["gen"], state, new_view, sorted(done), c["tables"], c["kp"].xy,
+                    c["colors"], c["pp"], c["K"], c["dist"], c["max_dim"], cfg, fix,
+                    new_view if use_local else None, run_ba=run_ba_every_view,
+                )
+                if not ok:
+                    log.warning(
+                        "view %d: PnP failed (%d inliers of %d 2D-3D support), skipping",
+                        new_view, n_inl, n_support,
+                    )
+                    failed[new_view] = len(done)
+                    stale.add(new_view)
+                    continue
+                log.info("view %d registered (%d PnP inliers)", new_view, n_inl)
+                done.add(new_view)
+                n_grown += 1
+                progress = True
+            if len(done) + len(exclude) >= V:
+                break
+        return state
+
+    def _frontier(self, done: set, failed: set, V: int) -> List[int]:
+        """Index-neighbour frontier (+-1 of done views, src/Sfm.cpp:900-931),
+        widened to every remaining view once it is exhausted."""
+        out = []
+        for v in sorted(done):
+            for cand in (v - 1, v + 1):
+                if 0 <= cand < V and cand not in done and cand not in failed and cand not in out:
+                    out.append(cand)
+        if not out:
+            out = [v for v in range(V) if v not in done and v not in failed]
+        return out
+
+    def _run_global_ba(self, state, anchor: int):
+        """Final global BA (config.ba.max_iterations) with its metrics."""
+        c = self._ctx
+        state, c0, c1, n_it, n_obs = ba_step(
+            state, c["kp"].xy, c["pp"], self._fix_mask(anchor), self.config,
+            self.config.ba.max_iterations,
+        )
+        n_obs = float(n_obs)
+        metrics = {
+            "ba_initial_cost": float(c0),
+            "ba_final_cost": float(c1),
+            "ba_iterations": int(n_it),
+            "ba_rms_px": float(np.sqrt(2.0 * float(c1) / max(n_obs, 1.0))),
+            "ba_n_obs": n_obs,
+            "focal": float(state.focal),
+        }
+        log.info(
+            "BA: cost %.1f -> %.1f (%d iters, RMS %.3f px, %d obs)",
+            metrics["ba_initial_cost"], metrics["ba_final_cost"],
+            metrics["ba_iterations"], metrics["ba_rms_px"], int(n_obs),
+        )
+        return state, metrics
