@@ -13,8 +13,15 @@ each printed on its own line; any failure raises and exits non-zero:
   4. the port's SfMPipeline.run on the V=10 rendered courtyard at
      480x640 with the default PipelineConfig, held against ground truth,
      with the kernel launch counts of that run;
+  5. SfMPipeline.run on the V=20 arc (480x640, default config), which
+     splits into two components: the merge, the straggler sweep, the
+     rotation-averaging reinit and local-window BA all run; held to the
+     merge and quality gates and printed beside the reference's numbers;
+  6. the dense stage (mvs.pipeline.densify) on the phase-5 result, held
+     to the dense gates and to the reference's point count;
 
-then the kernel summary line, and as the last line the device record
+then the kernel summary line (launches summed over the pipeline runs of
+phases 4-6), and as the last line the device record
 {"ok": true, "device": {...}}.
 """
 import json
@@ -31,6 +38,11 @@ N_VIEWS, K, D = 10, 2048, 128
 DUP_R2 = 0.25  # MatchConfig.dup_radius = 0.5 px
 KNN2_RTOL, KNN2_ATOL = 1e-5, 1e-6
 KNN2_TIE = 1e-5  # an index may differ only where d2 ties to 1e-5*max(1, d2)
+# The JAX reference on the V=20 arc (default config, CPU run): 20/20 in
+# two components merged once, 3,240 points, RMS 0.192 px, ATE 0.0735% of
+# the diameter; its dense stage gives 11,594 points.
+REF_V20 = {"n_points": 3240, "ba_rms_px": 0.192, "ate_pct": 0.0735}
+REF_V20_DENSE_POINTS = 11594
 
 
 def _require(cond, msg):
@@ -142,21 +154,36 @@ def check_knn2():
     return {"max_abs_err": max_err, "ms": ms_k, "plain_ms": ms_p}
 
 
-def run_pipeline():
-    from sfm_danpipeline_torch.config import PipelineConfig
+def _kernel_wrappers():
     from sfm_danpipeline_torch.ops.matching import knn2
+
+    return {"knn2": knn2}
+
+
+def _count_launches(fn):
+    """Run fn with every kernel's launch count set to 0 just before and
+    read just after; returns (result, {kernel: launches})."""
+    wrappers = _kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: w.launches for name, w in wrappers.items()}
+
+
+def run_pipeline(n_views, ring_fraction, components):
+    """Phases 4 and 5: SfMPipeline.run on the card, held against ground
+    truth. Returns (scene, result, launches)."""
+    from sfm_danpipeline_torch.config import PipelineConfig
     from sfm_danpipeline_torch.pipeline.sfm import SfMPipeline
     from sfm_danpipeline_torch.utils.metrics import aligned_rmse, camera_centers
     from sfm_danpipeline_torch.utils.synthscene import make_courtyard_scene
 
     t0 = time.time()
-    scene = make_courtyard_scene(n_views=10, ring_fraction=0.2, seed=0)
-    print(f"scene: rendered 10 views 480x640 in {time.time() - t0:.1f}s")
+    scene = make_courtyard_scene(n_views=n_views, ring_fraction=ring_fraction, seed=0)
+    print(f"scene: rendered {n_views} views 480x640 in {time.time() - t0:.1f}s")
     pipe = SfMPipeline(PipelineConfig(), device="cuda")
-    knn2.launches = 0
-    res = pipe.run(scene.images, scene.intrinsics)
-    torch.cuda.synchronize()
-    launches = {"knn2": knn2.launches}
+    res, launches = _count_launches(lambda: pipe.run(scene.images, scene.intrinsics))
     m = res.metrics
     regs = sorted(res.registered_views)
     c = camera_centers(res.state.cameras.cpu().numpy())[regs]
@@ -164,18 +191,45 @@ def run_pipeline():
     diam = float(np.linalg.norm(g.max(0) - g.min(0)))
     ate_frac = aligned_rmse(c, g) / diam if len(regs) >= 3 else float("nan")
     stages = {k: round(v, 3) for k, v in m.items() if k.startswith("t_")}
-    print(f"stages (s): {json.dumps(stages)}")
+    print(f"V={n_views} stages (s): {json.dumps(stages)}")
     print(
-        "quality: registered %d/10, unmerged %d, RMS %.3f px, ATE %.4f%% of "
-        "diameter, %d points, %.0f keypoints/image, knn2 launches %d"
+        "V=%d quality: registered %d/%d, components %d (merged %d), RMS %.3f px, "
+        "ATE %.4f%% of diameter, %d points, %.0f keypoints/image, knn2 launches %d"
         % (
-            m["n_registered"], m["n_unmerged_views"], m["ba_rms_px"],
-            100 * ate_frac, m["n_points"], m["n_keypoints_mean"],
-            launches["knn2"],
+            n_views, m["n_registered"], n_views, m["n_components"],
+            m["n_merged_components"], m["ba_rms_px"], 100 * ate_frac, m["n_points"],
+            m["n_keypoints_mean"], launches["knn2"],
         )
     )
-    _require(m["n_registered"] == 10, f"registered {m['n_registered']}/10")
-    _require(m["n_unmerged_views"] == 0, f"{m['n_unmerged_views']} unmerged views")
+    _require(m["n_registered"] == n_views, f"registered {m['n_registered']}/{n_views}")
+    if components == 1:
+        _require(m["n_components"] == 1, f"{m['n_components']} components")
+    else:
+        print(
+            "V=%d merge: %d components, %d merged, %d cross tracks, post-BA "
+            "cross-track median %.3f px; rotavg %s"
+            % (
+                n_views, m["n_components"], m["n_merged_components"],
+                m.get("n_cross_tracks", 0), m.get("merge_cross_med_px", float("inf")),
+                "fired, applied %d" % m["rotavg_applied"] if "rotavg_applied" in m
+                else "did not fire",
+            )
+        )
+        print(
+            "V=%d reference (JAX, CPU): %d points, RMS %.3f px, ATE %.4f%%; port "
+            "(card): %d points, RMS %.3f px, ATE %.4f%%"
+            % (
+                n_views, REF_V20["n_points"], REF_V20["ba_rms_px"], REF_V20["ate_pct"],
+                m["n_points"], m["ba_rms_px"], 100 * ate_frac,
+            )
+        )
+        _require(m["n_merged_components"] >= 1, "no component was merged")
+        _require("rotavg_applied" in m, "rotation averaging did not fire")
+        _require(m.get("n_cross_tracks", 0) >= 20, f"{m.get('n_cross_tracks')} cross tracks < 20")
+        _require(
+            m.get("merge_cross_med_px", float("inf")) < 4.0,
+            f"merge cross-track median {m.get('merge_cross_med_px')} px >= 4",
+        )
     _require(m["ba_rms_px"] < 1.0, f"BA RMS {m['ba_rms_px']} px >= 1")
     _require(ate_frac < 0.01, f"ATE {ate_frac} of diameter >= 1%")
     _require(
@@ -185,6 +239,41 @@ def run_pipeline():
     )
     for name, n in launches.items():
         _require(n >= 1, f"kernel {name} was not launched on the main path")
+    return scene, res, launches
+
+
+def run_dense(scene, res):
+    """Phase 6: the dense stage on the card, held to bench.py's dense gates
+    and to the reference's point count on the same scene."""
+    from sfm_danpipeline_torch.config import MVSConfig
+    from sfm_danpipeline_torch.mvs.pipeline import densify
+
+    dense, launches = _count_launches(
+        lambda: densify(scene.images, scene.intrinsics, res.state, MVSConfig(), device="cuda")
+    )
+    m = dense.metrics
+    print(
+        "dense: %d points (reference %d), coverage %.3f, sparse-depth median "
+        "rel err %.4f over %d pixels, t_dense %.3f s"
+        % (
+            m["n_dense_points"], REF_V20_DENSE_POINTS, m["depth_coverage"],
+            m["sparse_depth_med_rel_err"], m["sparse_depth_n_audited"], m["t_dense"],
+        )
+    )
+    _require(m["depth_coverage"] >= 0.30, f"dense coverage {m['depth_coverage']} < 0.30")
+    _require(
+        m["sparse_depth_med_rel_err"] < 0.02,
+        f"dense sparse-depth error {m['sparse_depth_med_rel_err']} >= 0.02",
+    )
+    _require(
+        abs(m["n_dense_points"] - REF_V20_DENSE_POINTS) <= 0.2 * REF_V20_DENSE_POINTS,
+        f"{m['n_dense_points']} dense points, not within 20% of {REF_V20_DENSE_POINTS}",
+    )
+    _require(
+        dense.points.ndim == 2 and dense.points.shape[1] == 3
+        and np.isfinite(dense.points).all(),
+        "dense cloud is not finite",
+    )
     return launches
 
 
@@ -207,7 +296,13 @@ def main():
     kernels.load("knn2")  # nvcc from csrc/ at first use
     print(f"build: knn2 {time.time() - t0:.1f}s")
     knn2_row = check_knn2()
-    launches = run_pipeline()
+    launches = {}
+    _, _, l4 = run_pipeline(10, 0.2, components=1)
+    scene20, res20, l5 = run_pipeline(20, 0.4, components=2)
+    l6 = run_dense(scene20, res20)
+    for part in (l4, l5, l6):
+        for name, n in part.items():
+            launches[name] = launches.get(name, 0) + n
     print(json.dumps({"kernels": [{
         "name": "knn2",
         "route": "cuda",

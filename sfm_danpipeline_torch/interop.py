@@ -3,8 +3,9 @@
 An SfM engine has no weights: what crosses between the two packages is
 the intermediate state. `*_from_numpy` builds the port's dataclasses from
 numpy arrays (what `np.asarray` gives of the reference's `Keypoints`,
-`PairMatches`, `ReconstructionState` and `BAProblem` fields); `*_to_numpy`
-goes back. Each stage can then be run alone on the other package's input.
+`PairMatches`, `ReconstructionState`, `BAProblem`, `PairScores` and
+`Sim3` fields); `*_to_numpy` goes back. Each stage can then be run alone on
+the other package's input.
 """
 from __future__ import annotations
 
@@ -17,11 +18,15 @@ import torch
 from sfm_danpipeline_torch.ba.problem import BAProblem
 from sfm_danpipeline_torch.ops.matching import PairMatches
 from sfm_danpipeline_torch.ops.sift import Keypoints
+from sfm_danpipeline_torch.ops.similarity import Sim3
+from sfm_danpipeline_torch.pipeline.bootstrap import PairScores
 from sfm_danpipeline_torch.pipeline.tracks import ReconstructionState
 
-_INT = {"idx_a", "idx_b", "track_feat", "feat_to_point", "n_points"}
+_INT = {"idx_a", "idx_b", "track_feat", "feat_to_point", "n_points", "n_matches", "n_inliers"}
 _LONG = {"obs_cam", "obs_pt"}
-_BOOL = {"valid", "points_valid", "camera_valid", "fix_cam", "fix_focal", "fix_pt"}
+_BOOL = {
+    "valid", "points_valid", "camera_valid", "fix_cam", "fix_focal", "fix_pt", "usable",
+}
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -34,20 +39,27 @@ def _dtype(name: str) -> torch.dtype:
     return torch.float32
 
 
+def _names(cls):
+    """Field names of a dataclass or a NamedTuple."""
+    if dataclasses.is_dataclass(cls):
+        return [f.name for f in dataclasses.fields(cls)]
+    return list(cls._fields)
+
+
 def _from_numpy(cls, fields, device):
     kw = {}
-    for f in dataclasses.fields(cls):
-        v = getattr(fields, f.name) if not isinstance(fields, dict) else fields.get(f.name)
-        kw[f.name] = None if v is None else torch.tensor(
-            np.array(v), dtype=_dtype(f.name), device=device
+    for name in _names(cls):
+        v = getattr(fields, name) if not isinstance(fields, dict) else fields.get(name)
+        kw[name] = None if v is None else torch.tensor(
+            np.array(v), dtype=_dtype(name), device=device
         )
     return cls(**kw)
 
 
 def _to_numpy(obj) -> Dict[str, np.ndarray]:
     return {
-        f.name: None if getattr(obj, f.name) is None else getattr(obj, f.name).cpu().numpy()
-        for f in dataclasses.fields(obj)
+        name: None if getattr(obj, name) is None else getattr(obj, name).cpu().numpy()
+        for name in _names(type(obj))
     }
 
 
@@ -69,6 +81,16 @@ def state_from_numpy(st, device="cpu") -> ReconstructionState:
 def problem_from_numpy(prob, device="cpu") -> BAProblem:
     """`prob`: an object or dict with the BAProblem fields."""
     return _from_numpy(BAProblem, prob, device)
+
+
+def scores_from_numpy(sc, device="cpu") -> PairScores:
+    """`sc`: an object or dict with the PairScores fields."""
+    return _from_numpy(PairScores, sc, device)
+
+
+def sim3_from_numpy(sim, device="cpu") -> Sim3:
+    """`sim`: an object or dict with s, R, t."""
+    return _from_numpy(Sim3, sim, device)
 
 
 keypoints_to_numpy = _to_numpy

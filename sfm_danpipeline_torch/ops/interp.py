@@ -30,6 +30,30 @@ def bilinear_sample(
     )
 
 
+def bilinear_sample_level(
+    stack: torch.Tensor, level: torch.Tensor, x: torch.Tensor, y: torch.Tensor
+) -> torch.Tensor:
+    """Sample stack (S, H, W) at integer level and fractional (x, y);
+    `level` broadcasts against x and y."""
+    S, H, W = stack.shape
+    x = torch.clamp(x, 0.0, W - 1.0)
+    y = torch.clamp(y, 0.0, H - 1.0)
+    x0 = torch.floor(x).long()
+    y0 = torch.floor(y).long()
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    fx = x - x0.to(stack.dtype)
+    fy = y - y0.to(stack.dtype)
+    base = torch.clamp(level.long(), 0, S - 1) * (H * W)
+    flat = stack.reshape(-1)
+    return (
+        flat[base + y0 * W + x0] * (1 - fx) * (1 - fy)
+        + flat[base + y0 * W + x1] * fx * (1 - fy)
+        + flat[base + y1 * W + x0] * (1 - fx) * fy
+        + flat[base + y1 * W + x1] * fx * fy
+    )
+
+
 def gather_cube(
     vol: torch.Tensor, s: torch.Tensor, y: torch.Tensor, x: torch.Tensor
 ) -> torch.Tensor:

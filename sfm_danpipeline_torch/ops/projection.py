@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from sfm_danpipeline_torch.ops.interp import bilinear_sample
+
 
 def _safe_z(z: torch.Tensor, eps: float) -> torch.Tensor:
     return torch.where(torch.abs(z) < eps, torch.full_like(z, eps), z)
@@ -61,6 +63,30 @@ def undistort_points(
         x = (x0 - dx) / radial
         y = (y0 - dy) / radial
     return torch.stack([x, y], dim=-1)
+
+
+def undistort_image(
+    img: torch.Tensor, K: torch.Tensor, dist: torch.Tensor
+) -> torch.Tensor:
+    """Resample a distorted image (H, W) or (H, W, C) onto the ideal pinhole
+    grid with the same K (cv::undistort semantics): each ideal pixel reads
+    its source through the forward distortion model, bilinearly."""
+    H, W = img.shape[:2]
+    fx, fy = K[0, 0], K[1, 1]
+    cx, cy = K[0, 2], K[1, 2]
+    v, u = torch.meshgrid(
+        torch.arange(H, dtype=torch.float32, device=img.device),
+        torch.arange(W, dtype=torch.float32, device=img.device),
+        indexing="ij",
+    )
+    xd = distort_normalized(torch.stack([(u - cx) / fx, (v - cy) / fy], dim=-1), dist)
+    us = xd[..., 0] * fx + cx
+    vs = xd[..., 1] * fy + cy
+    if img.ndim == 2:
+        return bilinear_sample(img, us, vs)
+    return torch.stack(
+        [bilinear_sample(img[..., c], us, vs) for c in range(img.shape[-1])], dim=-1
+    )
 
 
 def reprojection_error(

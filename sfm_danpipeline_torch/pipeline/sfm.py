@@ -4,15 +4,15 @@ Port of the default path of sfm_danpipeline_tpu/pipeline/sfm.py
 `SfMPipeline.run` (`StructFromMotion::map3D`, src/Sfm.cpp:9-109): SIFT ->
 all-pairs matching (the hand-written CUDA kNN kernel on a card) -> pair
 scoring + epipolar prefilter -> validated seed bootstrap -> incremental
-PnP + triangulation + per-view BA -> final global BA.
+PnP + triangulation + per-view BA -> secondary components, each merged
+into the main one by a gated Sim(3) -> straggler sweep -> rotation-
+averaging reinit (at >= ba.rotavg_min_views views) and the final global
+BA.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-step: other detectors / matchers (Queue 1 step 14), guided bridging (not
-ported unless a config needs it), checkpoints (step 13), precomputed
-multi-host inputs (step 15), rotation averaging (step 11). The
-secondary-component Sim(3) merge waits for step 8: views left outside the
-main component are reported as unmerged (`metrics["n_unmerged_views"]`),
-with a warning, and stay unregistered.
+step: other detectors / matchers (Queue 1 step 14), guided bridging and
+its block realign (not ported unless a config needs it), checkpoints
+(step 13), precomputed multi-host inputs (step 15).
 
 The reference's fixed-capacity buckets and fused-dispatch packaging are
 TPU workarounds and are not ported: BA works on the exact observation
@@ -23,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,15 +34,32 @@ from sfm_danpipeline_torch.config import PipelineConfig
 from sfm_danpipeline_torch.io.calibration import Intrinsics
 from sfm_danpipeline_torch.io.images import ImageBatch
 from sfm_danpipeline_torch.ops.interp import bilinear_sample
+from sfm_danpipeline_torch.ops.lie import exp_so3, log_so3
 from sfm_danpipeline_torch.ops.matching import match_all_pairs
 from sfm_danpipeline_torch.ops.projection import undistort_points
+from sfm_danpipeline_torch.ops.rotavg import (
+    average_rotations,
+    average_translations,
+    project_so3,
+)
 from sfm_danpipeline_torch.ops.select import top_k_indices
 from sfm_danpipeline_torch.ops.sift import Keypoints, detect_and_compute_batch
-from sfm_danpipeline_torch.pipeline.bootstrap import bootstrap_pair, score_pairs
+from sfm_danpipeline_torch.ops.similarity import estimate_sim3_reproj_ransac
+from sfm_danpipeline_torch.pipeline.bootstrap import (
+    PairScores,
+    bootstrap_pair,
+    score_pairs,
+)
 from sfm_danpipeline_torch.pipeline.incremental import (
     build_match_tables,
     epipolar_prefilter_table,
     register_and_triangulate,
+    triangulate_new_view_all,
+)
+from sfm_danpipeline_torch.pipeline.merge import (
+    cross_component_pairs,
+    merge_components,
+    views_reprojection_median,
 )
 from sfm_danpipeline_torch.pipeline.tracks import (
     ReconstructionState,
@@ -50,6 +67,7 @@ from sfm_danpipeline_torch.pipeline.tracks import (
     live_observations,
     observation_table_compact,
     prune_observations,
+    retriangulate_points,
 )
 
 log = logging.getLogger("sfm_danpipeline_torch")
@@ -74,16 +92,18 @@ def ba_step(
 ):
     """Bundle adjustment + map hygiene on the exact observation table.
 
-    `local_view` selects local-window BA: only that view, its
-    (local_window - 1) most covisible registered cameras and the points it
-    observes move; everything else is frozen. Returns (state, initial_cost,
-    final_cost, iterations, n_obs)."""
+    `local_view` selects local-window BA: only that view and its
+    (local_window - 1) most covisible registered cameras move, the other
+    cameras are frozen. Every point moves: the reference builds a
+    point-freezing mask for the window but its LM loop rebuilds the problem
+    without it (sfm_danpipeline_tpu/ba/solver.py run_ba), so this is what it
+    computes. Returns (state, initial_cost, final_cost, iterations,
+    n_obs)."""
     ba_cfg = config.ba
     B = int(state.n_points)  # points occupy slots [0, n_points)
     V = state.n_views
     obs_cam, obs_pt, xy, w = observation_table_compact(state, keypoints_xy, pp, n_points=B)
     fix_cam_eff = fix_cam
-    fix_pt = None
     if local_view is not None:
         has = state.track_feat[:B] >= 0
         pt_local = has[:, local_view] & state.points_valid[:B]
@@ -96,12 +116,10 @@ def ba_step(
         active[topv] = True
         active[local_view] = True
         fix_cam_eff = fix_cam | ~(active & state.camera_valid)
-        fix_pt = ~pt_local
     prob = BAProblem(
         cameras=state.cameras, focal=state.focal, points=state.points_xyz[:B],
         obs_cam=obs_cam, obs_pt=obs_pt, obs_xy=xy, obs_w=w, fix_cam=fix_cam_eff,
         fix_focal=torch.tensor(not ba_cfg.optimize_focal, device=pp.device),
-        fix_pt=fix_pt,
     )
     res = run_ba(prob, ba_cfg, max_iterations=max_iterations)
     points = state.points_xyz.clone()
@@ -167,6 +185,69 @@ def register_adjust_step(
         )[0]
         stats = stats[:4] + (int(torch.sum(live_observations(state))),)
     return state, stats
+
+
+def merge_attempt_step(
+    gen, state_a: ReconstructionState, state_b: ReconstructionState,
+    b_views: Sequence[int], a_views: Sequence[int], tables, keypoints_xy, colors,
+    pp, K, dist, fix_cam, config: PipelineConfig, samples: Optional[torch.Tensor] = None,
+):
+    """One Sim(3) merge attempt of component B into A: cross-component
+    3D-3D candidates from the strict matches -> reprojection-scored Sim(3)
+    RANSAC -> merge and gate 1 (median cross-track reprojection in B's
+    views <= max_merge_reprojection_px) -> triangulation of every B view
+    against A's views -> an intermediate BA -> gate 2 (that median <= half
+    the bound). Any failure keeps A. `samples` injects the RANSAC draws.
+
+    Returns (state, stats) with stats = {accepted, sim_ok, n_sim_inliers,
+    med_gate1_px, med_gate2_px, n_cross_tracks, scale}."""
+    ft_a, ft_b, vt_strict = tables[:3]
+    V = state_a.n_views
+    bound = config.geometry.max_merge_reprojection_px
+    K_cur = _k_matrix(state_a.focal, pp)
+    b_mask = torch.zeros((V,), dtype=torch.bool, device=pp.device)
+    b_mask[list(b_views)] = True
+    Xa, Xb, pid_a, pid_b, va, fa, m = cross_component_pairs(
+        state_a, state_b, ft_a, ft_b, vt_strict
+    )
+    sim = estimate_sim3_reproj_ransac(
+        gen, Xb, Xa, state_a.cameras[va], keypoints_xy[va, fa], K_cur, m,
+        threshold_px=0.75 * bound, n_hypotheses=16384, min_inliers=8,
+        samples=samples,
+    )
+
+    def cross_med(st):
+        has_obs = st.track_feat >= 0
+        seen_b = torch.any(has_obs & b_mask[None, :], dim=1)
+        seen_a = torch.any(has_obs & (~b_mask & st.camera_valid)[None, :], dim=1)
+        cross = seen_a & seen_b & st.points_valid
+        med = views_reprojection_median(st, b_mask, keypoints_xy, K_cur, points_mask=cross)
+        return med, int(torch.sum(cross))
+
+    sim_ok = bool(sim.ok)
+    med1 = med2 = float("inf")
+    n_cross = 0
+    cand = state_a
+    if sim_ok:
+        cand = merge_components(state_a, state_b, sim.sim, pid_a, pid_b, sim.inliers)
+        med1, _ = cross_med(cand)
+        if med1 <= bound:
+            for v in sorted(b_views):
+                cand, _ = triangulate_new_view_all(
+                    cand, v, a_views, ft_a, ft_b, vt_strict, keypoints_xy, colors,
+                    K, dist, config,
+                )
+            cand = ba_step(
+                cand, keypoints_xy, pp, fix_cam, config, config.ba.intermediate_iterations
+            )[0]
+            med2, n_cross = cross_med(cand)
+    accepted = sim_ok and med1 <= bound and med2 <= 0.5 * bound
+    stats = dict(
+        accepted=accepted, sim_ok=sim_ok, n_sim_inliers=int(sim.n_inliers),
+        med_gate1_px=med1, med_gate2_px=med2, n_cross_tracks=n_cross,
+        scale=float(sim.sim.s),
+    )
+    return (cand if accepted else state_a), stats
 
 
 @dataclasses.dataclass
@@ -380,29 +461,93 @@ class SfMPipeline:
         self._sync()
         metrics["t_incremental"] = time.time() - t0
 
-        # 4b. Views outside the main component need the secondary-component
-        # Sim(3) merge, which is not ported yet (ROADMAP Queue 1 step 8).
+        # 4b. Secondary components + Sim(3) merge: the remaining views
+        # bootstrap their own component with the same engine, and each
+        # component is merged into the main one by a gated Sim(3)
+        # (merge_attempt_step) or its views are lost.
         t0 = time.time()
         metrics["n_components"] = 1
         metrics["n_merged_components"] = 0
-        unmerged = sorted(set(range(V)) - done)
-        metrics["n_unmerged_views"] = len(unmerged)
-        if unmerged:
-            log.warning(
-                "views %s did not join the main component; the secondary-"
-                "component merge is not ported yet (ROADMAP Queue 1 step 8), "
-                "so they stay unregistered", unmerged,
+        lost: set = set()
+        while V - len(done) - len(lost) >= 2:
+            remaining = set(range(V)) - done - lost
+            seed_b = self._try_seed(
+                ranked_pairs(remaining), done | lost, strict, pair_of, intrinsics,
+                run_ba_every_view,
             )
+            if seed_b is None:
+                break
+            state_b, done_b, (bi, _) = seed_b
+            state_b = self._grow_component(
+                state_b, done_b, done | lost, anchor=bi,
+                run_ba_every_view=run_ba_every_view,
+            )
+            # Converge the component fully before the Sim(3) attempt.
+            state_b, _ = self._run_global_ba(state_b, anchor=bi)
+            metrics["n_components"] += 1
+            state_m, ms = merge_attempt_step(
+                gen, state, state_b, sorted(done_b), sorted(done), self._ctx["tables"],
+                kp.xy, colors, pp, K, dist, self._fix_mask(vi), cfg,
+            )
+            if ms["accepted"]:
+                log.info(
+                    "merging component %s into main (%d Sim3 inliers, scale "
+                    "%.3f, gate1 %.2f px, post-BA gate2 %.2f px over %d cross "
+                    "tracks)", sorted(done_b), ms["n_sim_inliers"], ms["scale"],
+                    ms["med_gate1_px"], ms["med_gate2_px"], ms["n_cross_tracks"],
+                )
+                state = state_m
+                done = done | done_b
+                metrics["n_merged_components"] += 1
+                metrics["merge_cross_med_px"] = ms["med_gate2_px"]
+                metrics["n_cross_tracks"] = ms["n_cross_tracks"]
+            else:
+                if not ms["sim_ok"]:
+                    log.warning(
+                        "component %s: Sim3 alignment failed (%d inliers) — "
+                        "dropping it", sorted(done_b), ms["n_sim_inliers"],
+                    )
+                elif ms["med_gate1_px"] > cfg.geometry.max_merge_reprojection_px:
+                    log.warning(
+                        "component %s: Sim(3) rejected by reprojection gate "
+                        "(median %.2f px > %.1f)", sorted(done_b),
+                        ms["med_gate1_px"], cfg.geometry.max_merge_reprojection_px,
+                    )
+                else:
+                    log.warning(
+                        "component %s: merge rejected by post-BA cross-track "
+                        "gate (median %.2f px)", sorted(done_b), ms["med_gate2_px"],
+                    )
+                lost |= done_b  # its views stay unregistered
+
+        # 4c. Straggler sweep: a view that failed PnP against either
+        # component alone often registers against the merged cloud.
+        if metrics["n_merged_components"] > 0 and len(done) + len(lost) < V:
+            n_before = len(done)
+            state = self._grow_component(
+                state, done, lost, anchor=vi, run_ba_every_view=run_ba_every_view
+            )
+            if len(done) > n_before:
+                log.info("straggler sweep registered %d more view(s)", len(done) - n_before)
+        self._sync()
         metrics["t_components"] = time.time() - t0
 
-        # 5. Final global BA.
+        # 5. Final global BA, after a rotation-averaging reinit on large
+        # view sets (kept only if the polished result does not regress).
         t0 = time.time()
+        ba_metrics = None
         if cfg.ba.rotavg_min_views and len(done) >= cfg.ba.rotavg_min_views:
-            raise NotImplementedError(
-                f"rotation averaging fires at >= {cfg.ba.rotavg_min_views} "
-                "registered views and is not ported yet (ROADMAP Queue 1 step 11)"
+            state_ra = self._rotavg_initialize(
+                state, done, scores, pi, pj, self._ctx["tables"], kp.xy, colors,
+                pp, K, dist,
             )
-        state, ba_metrics = self._run_global_ba(state, anchor=vi)
+            if state_ra is not state:
+                state, ba_metrics, applied = self._accept_reinit(
+                    state_ra, state, vi, "rotavg reinit"
+                )
+                metrics["rotavg_applied"] = applied
+        if ba_metrics is None:
+            state, ba_metrics = self._run_global_ba(state, anchor=vi)
         metrics.update(ba_metrics)
         self._sync()
         metrics["t_final_ba"] = time.time() - t0
@@ -546,12 +691,14 @@ class SfMPipeline:
             out = [v for v in range(V) if v not in done and v not in failed]
         return out
 
-    def _run_global_ba(self, state, anchor: int):
-        """Final global BA (config.ba.max_iterations) with its metrics."""
+    def _run_global_ba(self, state, anchor: int, intermediate: bool = False):
+        """Global BA with the final (config.ba.max_iterations) or the
+        intermediate budget; returns (state, metrics)."""
         c = self._ctx
+        ba_cfg = self.config.ba
         state, c0, c1, n_it, n_obs = ba_step(
             state, c["kp"].xy, c["pp"], self._fix_mask(anchor), self.config,
-            self.config.ba.max_iterations,
+            ba_cfg.intermediate_iterations if intermediate else ba_cfg.max_iterations,
         )
         n_obs = float(n_obs)
         metrics = {
@@ -568,3 +715,130 @@ class SfMPipeline:
             metrics["ba_iterations"], metrics["ba_rms_px"], int(n_obs),
         )
         return state, metrics
+
+    def _accept_reinit(self, cand, snap, anchor: int, tag: str):
+        """Polish a re-initialized state (intermediate then final BA) and
+        keep it only if it does not regress a polish-only run of `snap`: RMS
+        within 0.25 px and at least 80% of its observations. Returns
+        (state, ba_metrics, applied)."""
+        cand, _ = self._run_global_ba(cand, anchor, intermediate=True)
+        cand, m_c = self._run_global_ba(cand, anchor)
+        plain, m_p = self._run_global_ba(snap, anchor)
+        ok = (
+            m_c["ba_rms_px"] <= m_p["ba_rms_px"] + 0.25
+            and m_c["ba_n_obs"] >= 0.8 * m_p["ba_n_obs"]
+        )
+        verdict = "accepted" if ok else "reverted"
+        (log.info if ok else log.warning)(
+            "%s %s: RMS %.3f px / %d obs (polish-only %.3f px / %d obs)",
+            tag, verdict, m_c["ba_rms_px"], int(m_c["ba_n_obs"]),
+            m_p["ba_rms_px"], int(m_p["ba_n_obs"]),
+        )
+        return (cand, m_c, 1.0) if ok else (plain, m_p, 0.0)
+
+    def _rotavg_initialize(
+        self, state: ReconstructionState, done: set, scores: PairScores,
+        pair_i: Sequence[int], pair_j: Sequence[int], tables, keypoints_xy,
+        colors, pp, K, dist,
+    ) -> ReconstructionState:
+        """Global pose re-initialization from the two-view pose graph (loop
+        closure): per-edge basin choice against the current poses, chordal
+        rotation averaging with two outlier-rejection rounds, a consistency
+        gate, a Procrustes rotational gauge, translation averaging with a
+        scalar scale + offset gauge fit, multi-view re-triangulation of every
+        track, and a re-fuse sweep of every registered view against all
+        others. Returns `state` itself when the graph is too thin,
+        inconsistent or degenerate. The caller polishes the result."""
+        cfg = self.config
+        dev = state.device
+        V = state.n_views
+        done_sorted = sorted(done)
+        n_reg = len(done_sorted)
+        done_idx = torch.tensor(done_sorted, dtype=torch.long, device=dev)
+        reg = torch.zeros((V,), dtype=torch.bool, device=dev)
+        reg[done_idx] = True
+        # Compact the problem to the registered views: an unregistered view
+        # would be a zero-degree node whose nullspace hijacks the bottom
+        # eigenvectors. Edges touching one get w = 0 and collapse to
+        # zero-weight self-loops at compact node 0.
+        remap = torch.zeros((V,), dtype=torch.long, device=dev)
+        remap[done_idx] = torch.arange(n_reg, device=dev)
+        pi = torch.as_tensor(pair_i, dtype=torch.long, device=dev)
+        pj = torch.as_tensor(pair_j, dtype=torch.long, device=dev)
+        ci, cj = remap[pi], remap[pj]
+        # Per-edge basin: the candidate nearer the current relative rotation.
+        R_cur0 = exp_so3(state.cameras[:, :3])
+        R_cur_rel = torch.einsum("pab,pcb->pac", R_cur0[pj], R_cur0[pi])  # R_j R_i^T
+        dRb = torch.einsum("pkab,pcb->pkac", scores.R_rel, R_cur_rel)
+        trb = torch.clamp((dRb.diagonal(dim1=-2, dim2=-1).sum(-1) - 1.0) / 2.0, -1.0, 1.0)
+        basin = torch.argmax(trb, dim=-1)
+        rows = torch.arange(pi.numel(), device=dev)
+        R_rel = scores.R_rel[rows, basin]
+        t_rel = scores.t_rel[rows, basin]
+        w = (
+            scores.n_inliers[rows, basin].to(torch.float32)
+            * scores.usable * reg[pi] * reg[pj]
+        )
+        if int(torch.sum(w > 0)) < len(done):
+            log.info("rotavg: pose graph too thin — skipping")
+            return state
+        R_avg, res = average_rotations(ci, cj, R_rel, w, n_reg)
+        # Two IRLS rounds with a tightening residual gate.
+        w2 = w
+        for thr in (cfg.ba.rotavg_outlier_residual, 0.5 * cfg.ba.rotavg_outlier_residual):
+            w_new = w2 * (res <= thr)
+            if int(torch.sum(w_new > 0)) < len(done):
+                break
+            w2 = w_new
+            R_avg, res = average_rotations(ci, cj, R_rel, w2, n_reg)
+        # Consistency gate: a surviving graph that cannot explain itself is
+        # not trusted over the incremental estimate.
+        n_live = torch.clamp(torch.sum(w2 > 0), min=1)
+        mean_res = float(torch.sum(torch.where(w2 > 0, res, torch.zeros_like(res))) / n_live)
+        if mean_res > cfg.ba.rotavg_outlier_residual:
+            log.warning(
+                "rotavg: mean chordal residual %.3f above %.3f after IRLS — "
+                "pose graph inconsistent, skipping reinit",
+                mean_res, cfg.ba.rotavg_outlier_residual,
+            )
+            return state
+        # Rotational gauge: Procrustes onto the current estimate.
+        R_cur = exp_so3(state.cameras[done_idx, :3])
+        G = project_so3(torch.sum(torch.einsum("vij,vik->vjk", R_avg, R_cur), dim=0))
+        R_new = R_avg @ G
+        # Translation averaging under the new rotations; scalar gauge fit.
+        C_avg, _ = average_translations(ci, cj, R_new, t_rel, w2, n_reg)
+        C_cur = -torch.einsum("vij,vi->vj", R_cur, state.cameras[done_idx, 3:])
+        da = C_avg - torch.mean(C_avg, dim=0)
+        mean_c = torch.mean(C_cur, dim=0)
+        dc = C_cur - mean_c
+        denom = float(torch.sum(da * da))
+        if denom < 1e-10:
+            log.warning(
+                "rotavg: averaged centers degenerate (||da||^2 = %.2e) — "
+                "skipping reinit", denom,
+            )
+            return state
+        C_new = torch.sum(da * dc) / denom * da + mean_c
+        t_new = -torch.einsum("vij,vj->vi", R_new, C_new)
+        cameras = state.cameras.clone()
+        cameras[done_idx] = torch.cat([log_so3(R_new), t_new], dim=-1)
+        dR = torch.einsum("vij,vik->vjk", R_new, R_cur)
+        tr = torch.clamp((dR.diagonal(dim1=-2, dim2=-1).sum(-1) - 1) / 2, -1, 1)
+        log.info(
+            "global reinit over %d views / %d edges: max rotation correction "
+            "%.2f deg, max center shift %.3f", len(done), int(torch.sum(w2 > 0)),
+            float(torch.rad2deg(torch.arccos(tr)).max()),
+            float(torch.linalg.norm(C_new - C_cur, dim=-1).max()),
+        )
+        state = dataclasses.replace(state, cameras=cameras)
+        # Structure refresh + re-fuse sweep (recreates the loop-closing
+        # tracks that drift had rejected or pruned).
+        state = retriangulate_points(state, keypoints_xy, _k_matrix(state.focal, pp))
+        ft_a, ft_b, vt_strict = tables[:3]
+        for v in done_sorted:
+            state, _ = triangulate_new_view_all(
+                state, v, done_sorted, ft_a, ft_b, vt_strict, keypoints_xy, colors,
+                K, dist, cfg,
+            )
+        return state

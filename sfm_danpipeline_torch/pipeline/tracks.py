@@ -236,11 +236,14 @@ def retriangulate_points(
     r2 = yn[..., None] * Pm[None, :, 2, :] - Pm[None, :, 1, :]
     w = has.to(torch.float32)[..., None]
     ATA = torch.einsum("pva,pvb->pab", r1 * w, r1) + torch.einsum("pva,pvb->pab", r2 * w, r2)
-    _, vecs = torch.linalg.eigh(ATA)
-    h = vecs[..., 0]
+    n_obs = torch.sum(has, dim=1)
+    # Only rows that can be used are solved, in chunks: cuSOLVER's batched
+    # eigh refuses a batch the size of the whole capacity.
+    h = torch.zeros((P, 4), dtype=ATA.dtype, device=ATA.device)
+    for rows in torch.nonzero(state.points_valid & (n_obs >= 2))[:, 0].split(8192):
+        h[rows] = torch.linalg.eigh(ATA[rows])[1][..., 0]
     ok_h = torch.abs(h[:, 3]) > 1e-9
     X = h[:, :3] / torch.where(ok_h, h[:, 3], torch.ones_like(h[:, 3]))[:, None]
-    n_obs = torch.sum(has, dim=1)
     z = torch.einsum("vj,pj->pv", R[:, 2, :], X) + t[None, :, 2]
     front = torch.sum((z > 0) & has, dim=1)
     use = (
