@@ -7,9 +7,13 @@ Needs one CUDA card, nvcc and nvidia-smi; imports nothing of JAX. Phases,
 each printed on its own line; any failure raises and exits non-zero:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build every hand-written kernel of the main path from csrc/;
-  3. each kernel against its plain PyTorch version on the card, at the
-     main-path shape, with both versions' median times;
+  2. build every hand-written kernel of the main path from csrc/, with what
+     ptxas reports (registers, shared memory, spills);
+  3. each kernel against its plain PyTorch version on the card: at the
+     main-path shape and at the V=20 shape with both versions' median
+     times, the bound and the share of it, then on inputs built to break
+     the kernel (co-located groups, 0/1 descriptors at D = 256 and 512, a
+     ragged keypoint count, a width that is no multiple of 4);
   4. the port's SfMPipeline.run on the V=10 rendered courtyard at
      480x640 with the default PipelineConfig, held against ground truth,
      with the kernel launch counts of that run;
@@ -66,92 +70,95 @@ def _median_ms(fn, n=10):
     return float(np.median(times))
 
 
-def _knn2_inputs(device):
-    """Unit descriptors with true matches, ~10% invalid rows, and ~10%
-    co-located twins (same xy, near-duplicate descriptor) of B rows."""
-    rng = np.random.default_rng(0)
-    desc = rng.normal(size=(N_VIEWS, K, D)).astype(np.float32)
-    xy = rng.uniform(0, 640, size=(N_VIEWS, K, 2)).astype(np.float32)
-    for v in range(N_VIEWS):
-        twins = rng.choice(K, K // 10, replace=False)
-        src = rng.choice(K, K // 10, replace=False)
-        desc[v, twins] = desc[v, src] + 0.2 * rng.normal(size=(K // 10, D))
-        xy[v, twins] = xy[v, src]
-        # Half of each view's rows are noisy copies of the next view's rows.
-        half = rng.choice(K, K // 2, replace=False)
-        desc[v, half] = desc[(v + 1) % N_VIEWS, half] + 0.3 * rng.normal(
-            size=(K // 2, D)
-        )
-    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
-    valid = rng.uniform(size=(N_VIEWS, K)) > 0.1
-    pi, pj = np.triu_indices(N_VIEWS, 1)
-    t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)  # noqa: E731
-    return (
-        t(desc, torch.float32), t(valid, torch.bool), t(xy, torch.float32),
-        t(pi, torch.int32), t(pj, torch.int32),
+# Published peaks of one H100 SXM at its full power limit: float32
+# multiply-add outside the tensor cores, and device-memory bandwidth.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def knn2_bound(n_views, n_pairs, k, d):
+    """The least time (ms) the card could take for one knn2 call, and what
+    sets it: every input read once and every output written once over the
+    memory rate, or one fp32 multiply-add per (a, b, element) over the fp32
+    rate outside the tensor cores (the kernel's arithmetic is plain fp32)."""
+    flops = 2.0 * n_pairs * k * k * d
+    nbytes = n_views * k * (4 * d + 1 + 8) + 2 * 4 * n_pairs + n_pairs * k * 12
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {
+        "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+        "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+
+
+def check_knn2_case(name, case, exact_idx=False, timed=False):
+    """One input set through the kernel and through knn2_torch on the card,
+    held to KNN2_RTOL / KNN2_ATOL / KNN2_TIE (or to equal indices). Prints
+    one line; returns the numbers of the kernels line when `timed`."""
+    from sfm_danpipeline_torch.ops.matching import _launch_knn2, knn2, knn2_torch
+    from sfm_danpipeline_torch.utils.knn_cases import compare_knn2, to_tensors
+
+    desc, valid, xy, pi, pj = to_tensors(case, "cuda")
+    pil, pjl = pi.long(), pj.long()
+    n, k, d = desc.shape
+
+    def plain():
+        return knn2_torch(desc[pil], desc[pjl], valid[pjl], xy[pjl], case.dup_r2)
+
+    def kernel():
+        return knn2(desc, valid, xy, pi, pj, case.dup_r2)
+
+    got = kernel()
+    torch.cuda.synchronize()  # a fault during the run surfaces here
+    flagged = int(knn2.last_flagged)
+    n_mism, max_err = compare_knn2(
+        got, plain(), desc, valid, pi, pj,
+        rtol=KNN2_RTOL, atol=KNN2_ATOL, tie=KNN2_TIE, exact_idx=exact_idx,
     )
+    line = (
+        f"knn2 {name}: P={pi.numel()} Ka=Kb={k} D={d} dup_r2={case.dup_r2}: "
+        f"{n_mism} index mismatches ({'none allowed' if exact_idx else 'all near-ties'}), "
+        f"max |d2 err| {max_err:.3e} (rtol {KNN2_RTOL}, atol {KNN2_ATOL}); "
+        f"second sweep took {flagged} of {pi.numel() * k} rows"
+    )
+    row = {"max_abs_err": max_err, "flagged_rows": flagged}
+    if timed:
+        bound = knn2_bound(n, pi.numel(), k, d)
+        # `ms` is the wrapper as the main path calls it (its pair-bounds check
+        # reads two numbers back from the card); `launch_ms` the launch alone.
+        ms = _median_ms(kernel)
+        ms_l = _median_ms(lambda: _launch_knn2(desc, valid, xy, pi, pj, case.dup_r2))
+        ms_p = _median_ms(plain)
+        line += (
+            f"; median wrapper {ms:.3f} ms (launch alone {ms_l:.3f} ms), "
+            f"knn2_torch {ms_p:.3f} ms, bound "
+            f"{bound['bound_ms']:.3f} ms by {bound['bound_by']} ({bound['gflop']:.2f} GFLOP, "
+            f"{bound['mbytes']:.1f} MB), share of bound {100 * bound['bound_ms'] / ms:.1f}% "
+            f"(launch alone {100 * bound['bound_ms'] / ms_l:.1f}%)"
+        )
+        row.update(
+            ms=ms, launch_ms=ms_l, plain_ms=ms_p, bound_ms=bound["bound_ms"],
+            bound_by=bound["bound_by"], library_ms=None,
+        )
+    print(line)
+    return row
 
 
 def check_knn2():
-    from sfm_danpipeline_torch.ops.matching import knn2, knn2_torch
+    """Phase 3: the kernel against knn2_torch at the main-path shape (timed),
+    at the V=20 shape (timed), and on the inputs built to break it."""
+    from sfm_danpipeline_torch.utils import knn_cases
 
-    desc, valid, xy, pi, pj = _knn2_inputs("cuda")
-    pil, pjl = pi.long(), pj.long()
-
-    def plain():
-        return knn2_torch(desc[pil], desc[pjl], valid[pjl], xy[pjl], DUP_R2)
-
-    def kernel():
-        return knn2(desc, valid, xy, pi, pj, DUP_R2)
-
-    ik, bk, sk = kernel()
-    torch.cuda.synchronize()  # a fault during the run surfaces here
-    ip, bp, sp = plain()
-    # Distances of both chosen columns, recomputed in float64.
-    a64 = desc[pil].double()
-    b64 = desc[pjl].double()
-
-    def d2_at(idx):
-        bsel = torch.gather(b64, 1, idx.long()[..., None].expand(-1, -1, D))
-        d = ((a64 - bsel) ** 2).sum(-1)
-        ok = torch.gather(valid[pjl], 1, idx.long())
-        return torch.where(ok, d, torch.full_like(d, 3.4e38))
-
-    mism = ik != ip
-    dk, dp = d2_at(ik), d2_at(ip)
-    tie = (dk - dp).abs() <= KNN2_TIE * torch.clamp(dp, min=1.0)
-    n_mism = int(mism.sum())
-    _require(
-        not bool((mism & ~tie).any()),
-        f"knn2: {int((mism & ~tie).sum())} index mismatches off a near-tie",
-    )
-    err_b = (bk - bp).abs()
-    err_s = (sk - sp).abs()
-    finite = sp < 3.4e38
-    for name, err, ref, m in (
-        ("best", err_b, bp, torch.ones_like(finite)),
-        ("second", err_s, sp, finite),
-    ):
-        bad = m & (err > KNN2_ATOL + KNN2_RTOL * ref.abs())
-        _require(
-            not bool(bad.any()),
-            f"knn2 {name} d2 disagrees at {int(bad.sum())} rows "
-            f"(max err {float(err[m].max()):.3e})",
-        )
-    _require(
-        torch.equal(sk >= 3.4e38, sp >= 3.4e38),
-        "knn2: second-best sentinel rows differ",
-    )
-    max_err = float(torch.maximum(err_b.max(), err_s[finite].max()))
-    ms_k = _median_ms(kernel)
-    ms_p = _median_ms(plain)
-    print(
-        f"knn2: P={pi.numel()} Ka=Kb={K} D={D} dup_r2={DUP_R2}: "
-        f"{n_mism} index mismatches (all near-ties), max |d2 err| "
-        f"{max_err:.3e} (rtol {KNN2_RTOL}, atol {KNN2_ATOL}); median "
-        f"kernel {ms_k:.3f} ms, knn2_torch {ms_p:.3f} ms"
-    )
-    return {"max_abs_err": max_err, "ms": ms_k, "plain_ms": ms_p}
+    row = check_knn2_case("main path (V=10)", knn_cases.matches_case(N_VIEWS, K, D, DUP_R2), timed=True)
+    check_knn2_case("V=20 shape", knn_cases.matches_case(20, K, D, DUP_R2), timed=True)
+    colo = check_knn2_case("co-located groups of 3-6", knn_cases.colocated_case(K, D))
+    _require(colo["flagged_rows"] > 0, "knn2: the exact second sweep did not run")
+    for width in (256, 512):
+        check_knn2_case(f"0/1 descriptors D={width}", knn_cases.binary_case(K, width), exact_idx=True)
+    check_knn2_case("ragged K, no exclusion", knn_cases.ragged_case(1000, D))
+    check_knn2_case("width padded to 132", knn_cases.matches_case(3, K, 130, DUP_R2))
+    row.pop("flagged_rows")
+    return row
 
 
 def _kernel_wrappers():
@@ -194,11 +201,13 @@ def run_pipeline(n_views, ring_fraction, components):
     print(f"V={n_views} stages (s): {json.dumps(stages)}")
     print(
         "V=%d quality: registered %d/%d, components %d (merged %d), RMS %.3f px, "
-        "ATE %.4f%% of diameter, %d points, %.0f keypoints/image, knn2 launches %d"
+        "ATE %.4f%% of diameter, %d points, %.0f keypoints/image, knn2 launches %d "
+        "(second sweep took %d of %d rows)"
         % (
             n_views, m["n_registered"], n_views, m["n_components"],
             m["n_merged_components"], m["ba_rms_px"], 100 * ate_frac, m["n_points"],
-            m["n_keypoints_mean"], launches["knn2"],
+            m["n_keypoints_mean"], launches["knn2"], int(_kernel_wrappers()["knn2"].last_flagged),
+            n_views * (n_views - 1) // 2 * res.keypoints.valid.shape[1],
         )
     )
     _require(m["n_registered"] == n_views, f"registered {m['n_registered']}/{n_views}")
@@ -295,6 +304,7 @@ def main():
     t0 = time.time()
     kernels.load("knn2")  # nvcc from csrc/ at first use
     print(f"build: knn2 {time.time() - t0:.1f}s")
+    print("".join(f"  {line}\n" for line in kernels.ptxas_report("knn2")), end="")
     knn2_row = check_knn2()
     launches = {}
     _, _, l4 = run_pipeline(10, 0.2, components=1)

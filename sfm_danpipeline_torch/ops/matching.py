@@ -89,29 +89,60 @@ def knn2_torch(
     return best_idx.to(torch.int32), best, second
 
 
+KNN2_MAX_D = 1216  # widest descriptor whose A tile fits the kernel's shared memory
+
+
+def _kernel_width(d: int) -> int:
+    """The descriptor width the kernel is given for `d` columns: the next
+    multiple of 4 (it copies 16 bytes at a time); raises beyond KNN2_MAX_D."""
+    width = -(-d // 4) * 4
+    if width > KNN2_MAX_D:
+        raise ValueError(
+            f"knn2: descriptor width {d} exceeds the kernel's shared memory "
+            f"(at most {KNN2_MAX_D})"
+        )
+    return width
+
+
 def _launch_knn2(descriptors, valid, xy, pair_i, pair_j, dup_r2):
-    lib = kernels.load("knn2")
-    fn = lib.knn2_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ] + [ctypes.c_void_p] * 4
+    """Launch csrc/knn2.cu on CUDA tensors (already validated by `knn2`)."""
     N, K, D = descriptors.shape
+    width = _kernel_width(D)
+    if width != D:
+        # Zero columns change no distance.
+        descriptors = torch.nn.functional.pad(descriptors, (0, width - D))
+        D = width
+    fn = kernels.load("knn2").knn2_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float]
+        + [ctypes.c_void_p] * 8
+    )
     P = pair_i.shape[0]
+    if P * K >= 2**31:
+        raise ValueError("knn2 takes fewer than 2**31 / K pairs per launch")
     dev = descriptors.device
     idx = torch.empty((P, K), dtype=torch.int32, device=dev)
     best = torch.empty((P, K), dtype=torch.float32, device=dev)
     second = torch.empty((P, K), dtype=torch.float32, device=dev)
+    # Scratch: squared norms (plain, and with the sentinel for invalid rows),
+    # and the rows that the exact second sweep has to finish.
+    norms = torch.empty((2, N, K), dtype=torch.float32, device=dev)
+    flag_count = torch.empty((1,), dtype=torch.int32, device=dev)
+    flag_list = torch.empty((P, K), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
             descriptors.data_ptr(), valid.data_ptr(), xy.data_ptr(),
-            pair_i.data_ptr(), pair_j.data_ptr(), P, K, D, float(dup_r2),
-            idx.data_ptr(), best.data_ptr(), second.data_ptr(), stream,
+            pair_i.data_ptr(), pair_j.data_ptr(), N, P, K, D, float(dup_r2),
+            idx.data_ptr(), best.data_ptr(), second.data_ptr(),
+            norms[0].data_ptr(), norms[1].data_ptr(), flag_count.data_ptr(),
+            flag_list.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"knn2 kernel launch failed: cudaError {rc}")
     knn2.launches += 1
+    knn2.last_flagged = flag_count
     return idx, best, second
 
 
@@ -129,7 +160,9 @@ def knn2(
     Returns (best_idx (P, K) int32, best_d2 (P, K), second_d2 (P, K)).
 
     CUDA tensors run the hand-written kernel (csrc/knn2.cu) or raise; CPU
-    tensors run `knn2_torch`. `knn2.launches` counts kernel launches."""
+    tensors run `knn2_torch`. `knn2.launches` counts kernel launches;
+    `knn2.last_flagged` is the last launch's (1,) int32 device tensor with the
+    number of rows whose second-best needed the kernel's exact second sweep."""
     if descriptors.dim() != 3 or descriptors.dtype != torch.float32:
         raise ValueError("descriptors must be (N, K, D) float32")
     N, K, D = descriptors.shape
@@ -145,11 +178,11 @@ def knn2(
     tensors = (descriptors, valid, xy, pair_i, pair_j)
     if len({t.device for t in tensors}) != 1:
         raise ValueError("knn2 inputs must lie on one device")
-    if pair_i.numel() and (
-        int(torch.minimum(pair_i.min(), pair_j.min())) < 0
-        or int(torch.maximum(pair_i.max(), pair_j.max())) >= N
-    ):
-        raise ValueError("pair index out of range")
+    if pair_i.numel():
+        # One device-to-host copy for both bounds.
+        lo, hi = torch.stack(torch.aminmax(torch.cat([pair_i, pair_j]))).tolist()
+        if lo < 0 or hi >= N:
+            raise ValueError("pair index out of range")
     device = descriptors.device
     if device.type == "cpu":
         pi, pj = pair_i.long(), pair_j.long()
@@ -160,12 +193,11 @@ def knn2(
         raise ValueError(f"knn2 runs on cuda or cpu tensors, not {device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("knn2 inputs must be contiguous")
-    if pair_i.shape[0] > 65535:
-        raise ValueError("knn2 takes at most 65535 pairs per launch")
     return _launch_knn2(descriptors, valid, xy, pair_i, pair_j, dup_r2)
 
 
 knn2.launches = 0
+knn2.last_flagged = None
 
 
 def match_all_pairs(

@@ -290,15 +290,17 @@ def _pair_list(n: int) -> Tuple[List[int], List[int]]:
 class SfMPipeline:
     """Host-side orchestrator. Usage:
 
-        pipe = SfMPipeline(config, device="cuda")
+        pipe = SfMPipeline(config)
         result = pipe.run(images, intrinsics)
-    """
+
+    Runs on the CUDA card unless the caller asks for `device="cpu"`; with no
+    card present the default raises instead of running on the CPU."""
 
     def __init__(
         self,
         config: PipelineConfig = PipelineConfig(),
         checkpoint_path: Optional[str] = None,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
     ):
         if checkpoint_path is not None:
             raise NotImplementedError(
@@ -306,6 +308,11 @@ class SfMPipeline:
             )
         self.config = config
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "SfMPipeline runs on a CUDA card by default and none is "
+                'available; pass device="cpu" to run on the CPU'
+            )
 
     def _sync(self) -> None:
         """Wait for queued device work so host timers read true stage times."""

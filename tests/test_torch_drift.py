@@ -110,7 +110,7 @@ def test_port_imports_and_runs_without_jax():
         from sfm_danpipeline_torch.utils.synthscene import make_courtyard_scene
         sc = make_courtyard_scene(n_views=3, height=240, width=320, ring_fraction=0.06, seed=0)
         cfg = PipelineConfig(features=FeatureConfig(max_keypoints=1024))
-        res = SfMPipeline(cfg).run(sc.images, sc.intrinsics)
+        res = SfMPipeline(cfg, device="cpu").run(sc.images, sc.intrinsics)
         assert res.metrics["n_registered"] == 3, res.metrics
         print("jax" in sys.modules, sorted(k for k in sys.modules if k.startswith("sfm_danpipeline_tpu")))
         """)
@@ -121,3 +121,19 @@ def test_port_imports_and_runs_without_jax():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "False []"
+
+
+def test_pipeline_runs_on_the_card_unless_asked_for_the_cpu():
+    """`SfMPipeline()` takes the CUDA card; with none present it raises
+    rather than running on the CPU, which only `device="cpu"` selects."""
+    import pytest
+    import torch
+
+    from sfm_danpipeline_torch.pipeline.sfm import SfMPipeline
+
+    assert SfMPipeline(device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert SfMPipeline().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            SfMPipeline()

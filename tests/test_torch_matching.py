@@ -2,7 +2,10 @@
 the JAX reference: `knn2_torch` against `knn2_jnp` and the Pallas kernel
 `knn2_pallas` (interpret mode on the CPU), the `knn2` wrapper, and the
 ratio-test matchers. The CUDA kernel itself is held against `knn2_torch`
-by the gpu-marked test, which skips without a card.
+by the gpu-marked test, which skips without a card. The inputs built to
+break the kernel (co-located groups, 0/1 descriptors, a ragged keypoint
+count) come from `sfm_danpipeline_torch.utils.knn_cases`, the generators
+the card check uses at full size; here they run at K <= 256.
 
 Tolerances: indices equal; squared distances rtol 1e-5 (atol 1e-6) — the
 same f32 matmul identity, summed in another order. Match sets are compared
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 from sfm_danpipeline_torch.ops import matching as t_match
+from sfm_danpipeline_torch.utils import knn_cases
 
 
 @pytest.fixture(scope="module")
@@ -185,28 +189,111 @@ def test_ratio_test_filters_ambiguous():
     assert (0, 0) in got and all(ia != 1 for ia, _ in got)
 
 
+# The inputs built to break the kernel, at CPU size: name -> (case, whether
+# the card's indices must equal the plain version's exactly).
+HARD_CASES = {
+    "colocated": (lambda: knn_cases.colocated_case(k=256), False),
+    "binary256": (lambda: knn_cases.binary_case(k=192, d=256), True),
+    "binary512": (lambda: knn_cases.binary_case(k=192, d=512), True),
+    "ragged": (lambda: knn_cases.ragged_case(k=250), False),
+}
+
+
+@pytest.mark.parametrize("name", list(HARD_CASES))
+def test_knn2_hard_cases_match_jnp(name, jnp, j_match):
+    """The wrapper on CPU tensors (knn2_torch, batched over the pair list)
+    against knn2_jnp pair by pair: indices equal, d2 to rtol 1e-5."""
+    case = HARD_CASES[name][0]()
+    got = t_match.knn2(*knn_cases.to_tensors(case, "cpu"), case.dup_r2)
+    for p, (i, j) in enumerate(zip(case.pair_i, case.pair_j)):
+        ref = j_match.knn2_jnp(
+            jnp.asarray(case.desc[i]), jnp.asarray(case.desc[j]),
+            jnp.asarray(case.valid[j]), jnp.asarray(case.xy[j]), case.dup_r2,
+        )
+        _assert_knn_equal(ref, tuple(g[p] for g in got))
+
+
+def test_knn2_colocated_matches_pallas_interpret(jnp, j_match):
+    case = knn_cases.colocated_case(k=256)
+    got = t_match.knn2(*knn_cases.to_tensors(case, "cpu"), case.dup_r2)
+    ref = j_match.knn2_pallas(
+        jnp.asarray(case.desc[0]), jnp.asarray(case.desc[1]),
+        jnp.asarray(case.valid[1]), jnp.asarray(case.xy[1]),
+        tile_a=128, dup_r2=case.dup_r2,
+    )
+    _assert_knn_equal(ref, tuple(g[0] for g in got))
+
+
+def test_knn2_candidate_lists_are_exact_or_flagged():
+    """A CPU model of the CUDA kernel's one-pass selection on the co-located
+    case; it proves the algorithm, not the kernel, which only the gpu-marked
+    test and the card check run. Each of 16 threads keeps its 2 smallest
+    (d2, column) over the columns c = tx (mod 16); best is the lexicographic
+    minimum; T the smallest of the threads' last entries; second the smallest
+    listed candidate the best does not exclude. Wherever second <= T it must
+    be the plain version's second; the other rows are the ones the kernel
+    hands to its exact second sweep."""
+    cand = 2
+    case = knn_cases.colocated_case(k=256)
+    desc, valid, xy, pi, pj = knn_cases.to_tensors(case, "cpu")
+    i_ref, b_ref, s_ref = t_match.knn2(desc, valid, xy, pi, pj, case.dup_r2)
+    n_flagged = 0
+    for p in range(pi.numel()):
+        a, b = desc[pi[p]], desc[pj[p]]
+        d2 = torch.clamp((a * a).sum(-1)[:, None] + (b * b).sum(-1)[None] - 2.0 * (a @ b.T), min=0.0)
+        d2 = torch.where(valid[pj[p]][None], d2, torch.full_like(d2, 3.4e38))
+        K = d2.shape[1]
+        cand_d, cand_c, last = [], [], []
+        for tx in range(16):
+            cols = torch.arange(tx, K, 16)
+            order = torch.sort(d2[:, cols], dim=1, stable=True).indices[:, :cand]
+            cand_c.append(cols[order])
+            cand_d.append(torch.gather(d2[:, cols], 1, order))
+            last.append(cand_d[-1][:, -1])
+        cand_d, cand_c = torch.cat(cand_d, 1), torch.cat(cand_c, 1)
+        T = torch.stack(last, 1).min(1).values
+        key = cand_d.double() * 2**32 + cand_c  # (d2, column) lexicographic
+        bi = torch.gather(cand_c, 1, key.argmin(1, keepdim=True))[:, 0]
+        assert torch.equal(bi.int(), i_ref[p])
+        dxy = xy[pj[p]][cand_c] - xy[pj[p]][bi][:, None]
+        excl = (cand_c == bi[:, None]) | ((dxy * dxy).sum(-1) <= case.dup_r2)
+        sec = torch.where(excl, torch.full_like(cand_d, 3.4e38), cand_d).min(1).values
+        ok = sec <= T
+        n_flagged += int((~ok).sum())
+        torch.testing.assert_close(sec[ok], s_ref[p][ok], rtol=1e-5, atol=1e-6)
+    assert n_flagged > 0  # the case does reach the second sweep
+
+
+def test_knn2_kernel_width():
+    """The kernel takes widths in multiples of 4 (others are zero-padded) up
+    to KNN2_MAX_D; a wider descriptor raises before anything is built."""
+    assert t_match._kernel_width(128) == 128
+    assert t_match._kernel_width(130) == 132
+    assert t_match._kernel_width(t_match.KNN2_MAX_D) == t_match.KNN2_MAX_D
+    with pytest.raises(ValueError, match="exceeds"):
+        t_match._kernel_width(t_match.KNN2_MAX_D + 1)
+
+
 @pytest.mark.gpu
-def test_knn2_kernel_matches_plain_on_cuda():
+@pytest.mark.parametrize("name", ["matches", *HARD_CASES, "width130"])
+def test_knn2_kernel_matches_plain_on_cuda(name):
     """The hand-written CUDA kernel against knn2_torch on the card: indices
-    equal except at near-ties (|d2 difference| <= 1e-5 * max(1, d2)),
-    distances rtol 1e-5."""
+    equal except at near-ties (|d2 difference| <= 1e-5 * max(1, d2)) and
+    equal outright on 0/1 descriptors, distances rtol 1e-5."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU form")
-    a, b, vb, xy = _knn_case(seed=6, ka=256, kb=256)
-    desc = torch.tensor(np.stack([a[:256], b]), device="cuda")
-    valid = torch.tensor(np.stack([np.ones(256, bool), vb]), device="cuda")
-    xys = torch.tensor(np.stack([xy, xy]), device="cuda")
-    pi = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
-    pj = torch.tensor([1, 0], dtype=torch.int32, device="cuda")
+    width = 130 if name == "width130" else 128  # 130 is zero-padded to 132
+    make, exact_idx = HARD_CASES.get(name, (lambda: knn_cases.matches_case(3, 256, width), False))
+    case = make()
+    desc, valid, xy, pi, pj = knn_cases.to_tensors(case, "cuda")
     before = t_match.knn2.launches
-    ik, bk, sk = t_match.knn2(desc, valid, xys, pi, pj, DUP_R2)
+    got = t_match.knn2(desc, valid, xy, pi, pj, case.dup_r2)
     torch.cuda.synchronize()
     assert t_match.knn2.launches == before + 1
-    ip, bp, sp = t_match.knn2_torch(desc[pi.long()], desc[pj.long()], valid[pj.long()], xys[pj.long()], DUP_R2)
-    mism = ik != ip
-    d2 = ((desc[pi.long()][:, :, None] - desc[pj.long()][:, None]) ** 2).sum(-1)
-    dk = torch.gather(d2, 2, ik.long()[..., None])[..., 0]
-    dp = torch.gather(d2, 2, ip.long()[..., None])[..., 0]
-    assert bool(((dk - dp).abs()[mism] <= 1e-5 * torch.clamp(dp[mism], min=1)).all())
-    torch.testing.assert_close(bk, bp, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(sk, sp, rtol=1e-5, atol=1e-6)
+    pil, pjl = pi.long(), pj.long()
+    ref = t_match.knn2_torch(desc[pil], desc[pjl], valid[pjl], xy[pjl], case.dup_r2)
+    knn_cases.compare_knn2(
+        got, ref, desc, valid, pi, pj, rtol=1e-5, atol=1e-6, tie=1e-5, exact_idx=exact_idx
+    )
+    if name == "colocated":
+        assert int(t_match.knn2.last_flagged) > 0

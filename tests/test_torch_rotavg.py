@@ -161,7 +161,7 @@ def test_rotavg_initialize_matches_on_reference_state():
     )
     assert st_j is not ref.result.state  # the reinit ran
     tcfg = PipelineConfig(features=FeatureConfig(max_keypoints=cfg.features.max_keypoints))
-    st_t = SfMPipeline(tcfg)._rotavg_initialize(
+    st_t = SfMPipeline(tcfg, device="cpu")._rotavg_initialize(
         interop.state_from_numpy(ref.state), done, interop.scores_from_numpy(scores),
         ref.pi, ref.pj, tuple(_t(a) for a in ref.tables), _t(ref.keypoints_xy),
         _t(ref.colors), _t(pp), _t(K), _t(dist),

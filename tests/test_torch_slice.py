@@ -55,7 +55,7 @@ def runs():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        rt = SfMPipeline(PipelineConfig(features=FeatureConfig(max_keypoints=V6_MAX_KEYPOINTS))).run(
+        rt = SfMPipeline(PipelineConfig(features=FeatureConfig(max_keypoints=V6_MAX_KEYPOINTS)), device="cpu").run(
             scene.images, scene.intrinsics
         )
     finally:
@@ -186,7 +186,7 @@ def test_v20_arc_splits_merges_and_meets_the_gates():
     and meet the merge and quality gates of bench.py."""
     scene = make_courtyard_scene(n_views=20, ring_fraction=0.4, seed=0)
     rj = JPipeline(JPipelineConfig()).run(scene.images, scene.intrinsics)
-    rt = SfMPipeline(PipelineConfig()).run(scene.images, scene.intrinsics)
+    rt = SfMPipeline(PipelineConfig(), device="cpu").run(scene.images, scene.intrinsics)
     for res, centers in (
         (rj, j_centers(np.asarray(rj.state.cameras))),
         (rt, camera_centers(rt.state.cameras.numpy())),
