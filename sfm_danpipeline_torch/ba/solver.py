@@ -7,8 +7,11 @@ elimination, a dense Cholesky solve, back-substitution, and the
 accept/reject damping schedule. The reference's `lax.while_loop` is a host
 loop here, with one device->host read per iteration for the stop test.
 
-The segment sums use `index_add_`, which is atomic on CUDA: BA results
-are not bitwise repeatable there (the sum order varies run to run).
+The per-camera, per-point and per-(point, camera) segment sums use
+ops/reduce, whose summation order is fixed: a rerun from one state gives the
+same bits, on a card too (atomic `index_add_` would not). The observation
+lists do not change during a solve, so `run_ba` sorts them once
+(`segment_plans`) and every iteration sums through the same three tables.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from sfm_danpipeline_torch.ba.problem import BAProblem
 from sfm_danpipeline_torch.ba.residuals import cost as ba_cost
 from sfm_danpipeline_torch.ba.residuals import jacobian_blocks
 from sfm_danpipeline_torch.config import BAConfig
+from sfm_danpipeline_torch.ops.reduce import SegmentPlan, planned_sum, segment_plan
 
 
 class NormalBlocks(NamedTuple):
@@ -34,13 +38,30 @@ class NormalBlocks(NamedTuple):
     g_f: torch.Tensor  # ()
 
 
-def _segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device).index_add_(0, seg, x)
+class SegmentPlans(NamedTuple):
+    cam: SegmentPlan  # observations by camera
+    pt: SegmentPlan  # observations by point
+    pair: SegmentPlan  # observations by (point, camera)
 
 
-def build_normal_blocks(problem: BAProblem) -> Tuple[NormalBlocks, torch.Tensor]:
-    """Gauss-Newton normal-equation blocks and the current cost."""
+def segment_plans(problem: BAProblem) -> SegmentPlans:
+    """The three gather tables of `build_normal_blocks`; they depend on the
+    observation lists only, not on the parameters."""
     C, P = problem.n_cameras, problem.n_points
+    oc, op = problem.obs_cam, problem.obs_pt
+    return SegmentPlans(
+        cam=segment_plan(oc, C), pt=segment_plan(op, P), pair=segment_plan(op * C + oc, P * C)
+    )
+
+
+def build_normal_blocks(
+    problem: BAProblem, plans: Optional[SegmentPlans] = None
+) -> Tuple[NormalBlocks, torch.Tensor]:
+    """Gauss-Newton normal-equation blocks and the current cost. `plans`
+    (default: made here) must be `segment_plans` of the same observations."""
+    C, P = problem.n_cameras, problem.n_points
+    if plans is None:
+        plans = segment_plans(problem)
     r, Jc, Jf, Jp = jacobian_blocks(
         problem.cameras, problem.focal, problem.points, problem.obs_cam,
         problem.obs_pt, problem.obs_xy, problem.obs_w,
@@ -52,19 +73,15 @@ def build_normal_blocks(problem: BAProblem) -> Tuple[NormalBlocks, torch.Tensor]
         Jp = Jp * (~problem.fix_pt[problem.obs_pt]).to(Jp.dtype)[:, None, None]
     JcT = Jc.transpose(1, 2)
     JpT = Jp.transpose(1, 2)
-    oc, op = problem.obs_cam, problem.obs_pt
-    W = JcT @ Jp  # (O, 6, 3)
-    G = torch.zeros((P * C, 6, 3), dtype=W.dtype, device=W.device)
-    G.index_add_(0, op * C + oc, W)
     blocks = NormalBlocks(
-        U=_segment_sum(JcT @ Jc, oc, C),
-        V=_segment_sum(JpT @ Jp, op, P),
-        G=G.reshape(P, C, 6, 3),
-        Hcf=_segment_sum((JcT @ Jf)[..., 0], oc, C),
-        Hpf=_segment_sum((JpT @ Jf)[..., 0], op, P),
+        U=planned_sum(JcT @ Jc, plans.cam),
+        V=planned_sum(JpT @ Jp, plans.pt),
+        G=planned_sum(JcT @ Jp, plans.pair).reshape(P, C, 6, 3),
+        Hcf=planned_sum((JcT @ Jf)[..., 0], plans.cam),
+        Hpf=planned_sum((JpT @ Jf)[..., 0], plans.pt),
         Hff=torch.sum(Jf * Jf),
-        g_c=_segment_sum((JcT @ r[..., None])[..., 0], oc, C),
-        g_p=_segment_sum((JpT @ r[..., None])[..., 0], op, P),
+        g_c=planned_sum((JcT @ r[..., None])[..., 0], plans.cam),
+        g_p=planned_sum((JpT @ r[..., None])[..., 0], plans.pt),
         g_f=torch.sum(Jf[..., 0] * r),
     )
     return blocks, 0.5 * torch.sum(r * r)
@@ -176,13 +193,14 @@ def run_ba(
     lam = torch.tensor(config.init_lambda, dtype=torch.float32, device=c0.device)
     it = 0
     done = torch.tensor(False, device=c0.device)
+    plans = segment_plans(problem) if budget > 0 else None
     while it < budget:
         prob = BAProblem(
             cameras=cameras, focal=focal, points=points, obs_cam=problem.obs_cam,
             obs_pt=problem.obs_pt, obs_xy=problem.obs_xy, obs_w=problem.obs_w,
             fix_cam=problem.fix_cam, fix_focal=problem.fix_focal, fix_pt=problem.fix_pt,
         )
-        blocks, _ = build_normal_blocks(prob)
+        blocks, _ = build_normal_blocks(prob, plans)
         dc, df, dp = schur_solve(blocks, lam, problem.fix_cam, problem.fix_focal)
         new_cams, new_focal, new_points = cameras + dc, focal + df, points + dp
         new_cost = cost_of(new_cams, new_focal, new_points)

@@ -65,3 +65,13 @@ def gather_cube(
     yy = torch.clamp(y[:, None, None, None] + offs[None, None, :, None], 0, H - 1)
     xx = torch.clamp(x[:, None, None, None] + offs[None, None, None, :], 0, W - 1)
     return vol.reshape(-1)[(ss * H + yy) * W + xx]
+
+
+def bilinear_sample_batch(
+    imgs: torch.Tensor, x: torch.Tensor, y: torch.Tensor
+) -> torch.Tensor:
+    """bilinear_sample over a batch: imgs (N, H, W), x and y (N, ...) ->
+    samples of image n at its own positions, clamped to the border."""
+    N, H, W = imgs.shape
+    n = torch.arange(N, device=imgs.device).reshape((N,) + (1,) * (x.dim() - 1))
+    return bilinear_sample_level(imgs, n, x, y)

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from sfm_danpipeline_torch.config import FeatureConfig
 from sfm_danpipeline_torch.ops.interp import gather_cube
+from sfm_danpipeline_torch.ops.reduce import binned_sum
 from sfm_danpipeline_torch.ops.select import top_k_indices
 
 
@@ -214,7 +215,8 @@ _DESC_SAMPLES = 4  # samples per descriptor-bin axis -> 16x16 grid
 
 
 def _gradient_stacks(gauss: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Central-difference gradients of each level. gauss: (N, L, H, W)."""
+    """Central-difference gradients over the last two axes, zero at the
+    border. gauss: (..., H, W), e.g. the (N, L, H, W) level stack."""
     gx = torch.zeros_like(gauss)
     gx[..., 1:-1] = 0.5 * (gauss[..., 2:] - gauss[..., :-2])
     gy = torch.zeros_like(gauss)
@@ -292,9 +294,11 @@ def _orientation(sample, x, y, sigma_oct, config):
     fbin = (ang + math.pi) / (2.0 * math.pi) * nbins
     b0 = torch.remainder(torch.floor(fbin).long(), nbins)
     fb = fbin - torch.floor(fbin)
-    hist = torch.zeros(x.shape + (nbins,), dtype=torch.float32, device=dev)
-    hist.scatter_add_(-1, b0, w * mag * (1.0 - fb))
-    hist.scatter_add_(-1, torch.remainder(b0 + 1, nbins), w * mag * fb)
+    # Both histograms are masked dense sums, not scatter-adds: atomics would
+    # make the bins differ in the last bits from run to run on a card.
+    hist = binned_sum(w * mag * (1.0 - fb), b0, nbins) + binned_sum(
+        w * mag * fb, torch.remainder(b0 + 1, nbins), nbins
+    )
     kern = [1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0]
     sm = sum(kern[i] * torch.roll(hist, i - 2, dims=-1) for i in range(5))
     peak = torch.argmax(sm, dim=-1)
@@ -357,21 +361,29 @@ def _descriptors(sample, x, y, sigma_oct, angle, config):
     fv = vb - v0
     fo = obin - o0
     w = mag * gauss_w
-    desc = torch.zeros(x.shape + ((D + 1) * (D + 1) * NB,), dtype=torch.float32, device=dev)
+    # The sample grid is fixed in the keypoint frame, so the spatial part of
+    # the trilinear binning is one constant (D*D, samples) matrix; only the
+    # orientation bin depends on the data. Orientation weights as a masked
+    # dense sum, then a matrix product: no atomics, a fixed summation order.
+    spatial = torch.zeros((D * D, n * n), dtype=torch.float32, device=dev)
+    cols = torch.arange(n * n, device=dev)
     for dv_ in (0, 1):
         for du_ in (0, 1):
             wt_s = (fv if dv_ else 1.0 - fv) * (fu if du_ else 1.0 - fu)
-            vi = torch.clamp(v0 + dv_, 0, D)
-            ui = torch.clamp(u0 + du_, 0, D)
-            ok = (v0 + dv_ >= 0) & (v0 + dv_ < D) & (u0 + du_ >= 0) & (u0 + du_ < D)
-            for do_ in (0, 1):
-                wt = w * wt_s * (fo if do_ else 1.0 - fo)
-                oi = torch.remainder(o0 + do_, NB)
-                idx = (vi * (D + 1) + ui) * NB + oi
-                desc.scatter_add_(-1, idx, torch.where(ok, wt, torch.zeros_like(wt)))
-    vec = desc.reshape(x.shape + (D + 1, D + 1, NB))[..., :D, :D, :].reshape(
-        x.shape + (D * D * NB,)
-    )
+            vi = v0 + dv_
+            ui = u0 + du_
+            ok = (vi >= 0) & (vi < D) & (ui >= 0) & (ui < D)
+            rows = torch.clamp(vi, 0, D - 1) * D + torch.clamp(ui, 0, D - 1)
+            # Each (row, sample) cell is written by one (dv_, du_) only.
+            spatial[rows, cols] += torch.where(ok, wt_s, torch.zeros_like(wt_s))
+    ids = torch.arange(NB, device=dev)
+    o0 = torch.remainder(o0, NB)[..., None]
+    o1 = torch.remainder(o0 + 1, NB)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    orient = torch.where(o0 == ids, (w * (1.0 - fo))[..., None], zero) + torch.where(
+        o1 == ids, (w * fo)[..., None], zero
+    )  # (N, K, samples, NB)
+    vec = torch.matmul(spatial, orient).reshape(x.shape + (D * D * NB,))
     norm = torch.linalg.norm(vec, dim=-1, keepdim=True) + 1e-12
     vec = torch.clamp(vec / norm, max=0.2)
     return vec / (torch.linalg.norm(vec, dim=-1, keepdim=True) + 1e-12)

@@ -9,10 +9,13 @@ into the main one by a gated Sim(3) -> straggler sweep -> rotation-
 averaging reinit (at >= ba.rotavg_min_views views) and the final global
 BA.
 
+The detector (SIFT, AKAZE, ORB) and the matcher (descriptor kNN or LK flow)
+follow the config; with a `checkpoint_path` the state is saved after every
+registered view and accepted merge, and `run` resumes from the file.
+
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-step: other detectors / matchers (Queue 1 step 14), guided bridging and
-its block realign (not ported unless a config needs it), checkpoints
-(step 13), precomputed multi-host inputs (step 15).
+step: guided bridging and its block realign (the last queue entry),
+precomputed multi-host inputs (step 15).
 
 The reference's fixed-capacity buckets and fused-dispatch packaging are
 TPU workarounds and are not ported: BA works on the exact observation
@@ -22,20 +25,25 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from sfm_danpipeline_torch import require_device
 from sfm_danpipeline_torch.ba.problem import BAProblem
 from sfm_danpipeline_torch.ba.solver import run_ba
 from sfm_danpipeline_torch.config import PipelineConfig
 from sfm_danpipeline_torch.io.calibration import Intrinsics
 from sfm_danpipeline_torch.io.images import ImageBatch
+from sfm_danpipeline_torch.ops.akaze import detect_and_compute_akaze_batch
+from sfm_danpipeline_torch.ops.flow import flow_match_all_pairs
 from sfm_danpipeline_torch.ops.interp import bilinear_sample
 from sfm_danpipeline_torch.ops.lie import exp_so3, log_so3
 from sfm_danpipeline_torch.ops.matching import match_all_pairs
+from sfm_danpipeline_torch.ops.orb import detect_and_compute_orb_batch
 from sfm_danpipeline_torch.ops.projection import undistort_points
 from sfm_danpipeline_torch.ops.rotavg import (
     average_rotations,
@@ -69,6 +77,7 @@ from sfm_danpipeline_torch.pipeline.tracks import (
     prune_observations,
     retriangulate_points,
 )
+from sfm_danpipeline_torch.utils.checkpoint import load_state, save_state
 
 log = logging.getLogger("sfm_danpipeline_torch")
 
@@ -302,17 +311,12 @@ class SfMPipeline:
         checkpoint_path: Optional[str] = None,
         device: str | torch.device = "cuda",
     ):
-        if checkpoint_path is not None:
-            raise NotImplementedError(
-                "checkpoint/resume is not ported yet (ROADMAP Queue 1 step 13)"
-            )
+        """`checkpoint_path`: when set, the reconstruction state is saved
+        after every registered view and accepted merge (one small .npz), and
+        `run` resumes from the file if it exists."""
         self.config = config
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "SfMPipeline runs on a CUDA card by default and none is "
-                'available; pass device="cpu" to run on the CPU'
-            )
+        self.checkpoint_path = checkpoint_path
+        self.device = require_device(device)
 
     def _sync(self) -> None:
         """Wait for queued device work so host timers read true stage times."""
@@ -321,21 +325,55 @@ class SfMPipeline:
 
     def _check_config(self) -> None:
         cfg = self.config
-        if cfg.features.detector != "sift":
-            raise NotImplementedError(
-                f"detector {cfg.features.detector!r} is not ported yet "
-                "(ROADMAP Queue 1 step 14)"
-            )
-        if cfg.matching.method != "bf":
-            raise NotImplementedError(
-                f"matching method {cfg.matching.method!r} is not ported yet "
-                "(ROADMAP Queue 1 step 14)"
-            )
+        if cfg.features.detector not in ("sift", "akaze", "orb"):
+            raise ValueError(f"unknown detector {cfg.features.detector!r}")
+        if cfg.matching.method not in ("bf", "flow"):
+            raise ValueError(f"unknown matching method {cfg.matching.method!r}")
         if cfg.geometry.guided_enable:
             raise NotImplementedError(
-                "guided bridge registration is not ported (ROADMAP Queue 1, "
-                "'Not to port, unless a config needs them')"
+                "guided bridge registration with its block realign is not "
+                "ported yet (ROADMAP Queue 1, the last entry of 'Left, in order')"
             )
+
+    def _save_ckpt(self, state, done: set, lost: set, anchor: int) -> None:
+        if not self.checkpoint_path:
+            return
+        save_state(
+            self.checkpoint_path, state,
+            done=np.asarray(sorted(done), np.int32),
+            lost=np.asarray(sorted(lost), np.int32),
+            anchor=np.asarray(anchor, np.int32),
+            # Beyond the reference's extras: the generator's state, so that a
+            # resumed run draws the RANSAC samples the uninterrupted one would.
+            rng_state=self._ctx["gen"].get_state().numpy(),
+        )
+
+    def _load_ckpt(self, V: int):
+        """Returns (state, done, lost, anchor) or None; restores the
+        generator's state when the file carries one for this device."""
+        if not (self.checkpoint_path and os.path.exists(self.checkpoint_path)):
+            return None
+        st, extra = load_state(self.checkpoint_path, device=self.device)
+        cfg = self.config
+        if tuple(st.track_feat.shape) != (cfg.max_points, V) or (
+            st.max_keypoints != cfg.features.max_keypoints
+        ):
+            log.warning(
+                "checkpoint %s has incompatible shapes — ignoring", self.checkpoint_path
+            )
+            return None
+        if "done" not in extra:
+            return None
+        gen = self._ctx["gen"]
+        rng = extra.get("rng_state")
+        if rng is not None and rng.size == gen.get_state().numel():
+            gen.set_state(torch.as_tensor(rng))
+        return (
+            st,
+            set(np.asarray(extra["done"]).tolist()),
+            set(np.asarray(extra.get("lost", np.zeros(0))).tolist()),
+            int(extra.get("anchor", 0)),
+        )
 
     # ------------------------------------------------------------------
     def run(
@@ -370,9 +408,13 @@ class SfMPipeline:
 
         # 1. Features (src/Sfm.cpp:257-327), the whole batch at once.
         t0 = time.time()
-        kp = detect_and_compute_batch(
-            torch.as_tensor(images.gray, device=dev), cfg.features
-        )
+        gray = torch.as_tensor(images.gray, device=dev)
+        if cfg.features.detector == "orb":
+            kp = detect_and_compute_orb_batch(gray, max_keypoints=cfg.features.max_keypoints)
+        elif cfg.features.detector == "akaze":
+            kp = detect_and_compute_akaze_batch(gray, cfg.features)
+        else:
+            kp = detect_and_compute_batch(gray, cfg.features)
         self._sync()
         metrics["t_features"] = time.time() - t0
         metrics["n_keypoints_mean"] = float(kp.valid.sum(-1).float().mean())
@@ -398,17 +440,25 @@ class SfMPipeline:
 
         # 2. All-pairs matching (src/Sfm.cpp:509-583): one pass at the
         # loose registration ratio; the strict reference set is a mask.
+        # "flow" selects the LK alternative (src/Sfm.cpp:1399), which
+        # carries no Lowe ratio and launches no kNN kernel.
         t0 = time.time()
         pi, pj = _pair_list(V)
         pi_t = torch.tensor(pi, dtype=torch.int32, device=dev)
         pj_t = torch.tensor(pj, dtype=torch.int32, device=dev)
-        loose = max(cfg.matching.ratio, cfg.matching.registration_ratio)
-        matches = match_all_pairs(
-            kp.descriptors, kp.valid, pi_t, pj_t, ratio=loose,
-            max_matches=cfg.matching.max_matches, strict_ratio=cfg.matching.ratio,
-            xy=kp.xy, dup_radius=cfg.matching.dup_radius,
-            dedup=cfg.matching.dedup_matches,
-        )
+        if cfg.matching.method == "flow":
+            matches = flow_match_all_pairs(
+                gray, kp.xy, kp.valid, pi, pj, radius=cfg.matching.flow_radius,
+                max_matches=cfg.matching.max_matches,
+            )
+        else:
+            loose = max(cfg.matching.ratio, cfg.matching.registration_ratio)
+            matches = match_all_pairs(
+                kp.descriptors, kp.valid, pi_t, pj_t, ratio=loose,
+                max_matches=cfg.matching.max_matches, strict_ratio=cfg.matching.ratio,
+                xy=kp.xy, dup_radius=cfg.matching.dup_radius,
+                dedup=cfg.matching.dedup_matches,
+            )
         self._sync()
         metrics["t_matching"] = time.time() - t0
         metrics["n_pairs"] = len(pi)
@@ -438,22 +488,34 @@ class SfMPipeline:
             ]
             return [(a, b) for _, a, b in sorted(cand, reverse=True)]
 
-        seed = self._try_seed(
-            ranked_pairs(set(range(V))), set(), strict, pair_of, intrinsics,
-            run_ba_every_view,
-        )
-        if seed is None:
-            raise RuntimeError(
-                "baseline reconstruction failed (no seed pair survived "
-                "pose, angle gate, and third-view validation)"
+        lost: set = set()  # views in components whose merge failed
+        resume = self._load_ckpt(V)
+        if resume is not None:
+            state, done, lost, vi = resume
+            vj = vi
+            baseline_matches = None
+            log.info(
+                "resumed from %s: %d views registered, %d lost",
+                self.checkpoint_path, len(done), len(lost),
             )
-        state, done, (vi, vj) = seed
-        one = strict.pair(pair_of[(vi, vj)])
-        baseline_matches = (
-            kp.xy[vi][one.idx_a.long()].cpu().numpy(),
-            kp.xy[vj][one.idx_b.long()].cpu().numpy(),
-            one.valid.cpu().numpy(),
-        )
+        else:
+            seed = self._try_seed(
+                ranked_pairs(set(range(V))), set(), strict, pair_of, intrinsics,
+                run_ba_every_view,
+            )
+            if seed is None:
+                raise RuntimeError(
+                    "baseline reconstruction failed (no seed pair survived "
+                    "pose, angle gate, and third-view validation)"
+                )
+            state, done, (vi, vj) = seed
+            one = strict.pair(pair_of[(vi, vj)])
+            baseline_matches = (
+                kp.xy[vi][one.idx_a.long()].cpu().numpy(),
+                kp.xy[vj][one.idx_b.long()].cpu().numpy(),
+                one.valid.cpu().numpy(),
+            )
+            self._save_ckpt(state, done, lost, vi)
         self._sync()
         metrics["baseline_pair_i"] = vi
         metrics["baseline_pair_j"] = vj
@@ -462,8 +524,10 @@ class SfMPipeline:
 
         # 4. Incremental loop (src/Sfm.cpp:893-1009).
         t0 = time.time()
+        ckpt_cb = lambda st, dn: self._save_ckpt(st, dn, lost, vi)  # noqa: E731
         state = self._grow_component(
-            state, done, set(), anchor=vi, run_ba_every_view=run_ba_every_view
+            state, done, set(), anchor=vi, run_ba_every_view=run_ba_every_view,
+            ckpt_cb=ckpt_cb,
         )
         self._sync()
         metrics["t_incremental"] = time.time() - t0
@@ -475,7 +539,6 @@ class SfMPipeline:
         t0 = time.time()
         metrics["n_components"] = 1
         metrics["n_merged_components"] = 0
-        lost: set = set()
         while V - len(done) - len(lost) >= 2:
             remaining = set(range(V)) - done - lost
             seed_b = self._try_seed(
@@ -526,13 +589,15 @@ class SfMPipeline:
                         "gate (median %.2f px)", sorted(done_b), ms["med_gate2_px"],
                     )
                 lost |= done_b  # its views stay unregistered
+            self._save_ckpt(state, done, lost, vi)
 
         # 4c. Straggler sweep: a view that failed PnP against either
         # component alone often registers against the merged cloud.
         if metrics["n_merged_components"] > 0 and len(done) + len(lost) < V:
             n_before = len(done)
             state = self._grow_component(
-                state, done, lost, anchor=vi, run_ba_every_view=run_ba_every_view
+                state, done, lost, anchor=vi, run_ba_every_view=run_ba_every_view,
+                ckpt_cb=ckpt_cb,
             )
             if len(done) > n_before:
                 log.info("straggler sweep registered %d more view(s)", len(done) - n_before)
@@ -635,6 +700,7 @@ class SfMPipeline:
         anchor: int,
         run_ba_every_view: bool = True,
         max_new_views: Optional[int] = None,
+        ckpt_cb=None,
     ) -> ReconstructionState:
         """Grow one component by PnP registration + triangulation (the
         reference's addMoreViews loop, src/Sfm.cpp:893-1009); `done` is
@@ -682,6 +748,8 @@ class SfMPipeline:
                 done.add(new_view)
                 n_grown += 1
                 progress = True
+                if ckpt_cb is not None:
+                    ckpt_cb(state, done)
             if len(done) + len(exclude) >= V:
                 break
         return state

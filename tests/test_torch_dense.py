@@ -28,6 +28,7 @@ from sfm_danpipeline_torch.mvs import rectsweep as t_rs
 from sfm_danpipeline_torch.ops import projection as t_proj
 from test_mvs import _render_plane, _texture
 from torch_v6_reference import reference_v6
+from torch_testing import one_torch_thread  # noqa: F401
 
 
 def _t(a):

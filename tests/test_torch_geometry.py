@@ -20,6 +20,7 @@ from sfm_danpipeline_torch.ops import interp as t_interp
 from sfm_danpipeline_torch.ops import lie as t_lie
 from sfm_danpipeline_torch.ops import projection as t_proj
 from sfm_danpipeline_torch.ops import triangulation as t_tri
+from torch_testing import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 

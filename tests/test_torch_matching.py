@@ -21,6 +21,7 @@ import torch
 
 from sfm_danpipeline_torch.ops import matching as t_match
 from sfm_danpipeline_torch.utils import knn_cases
+from torch_testing import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

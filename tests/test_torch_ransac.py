@@ -23,6 +23,7 @@ from sfm_danpipeline_tpu.ops.ransac import sample_indices as j_sample
 from sfm_danpipeline_torch.ops import epipolar as t_epi
 from sfm_danpipeline_torch.ops import homography as t_h
 from sfm_danpipeline_torch.ops import pnp as t_pnp
+from torch_testing import one_torch_thread  # noqa: F401
 
 
 def _rot_angle(Ra, Rb):

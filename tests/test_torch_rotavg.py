@@ -23,6 +23,7 @@ from sfm_danpipeline_torch.ops import rotavg as t_ra
 from sfm_danpipeline_torch.utils.metrics import camera_centers
 from test_rotavg import _max_angle_err, _ring_problem
 from torch_v6_reference import reference_v6
+from torch_testing import one_torch_thread  # noqa: F401
 
 
 def _t(a):

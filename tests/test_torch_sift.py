@@ -18,6 +18,7 @@ from sfm_danpipeline_tpu.ops import sift as j_sift
 from sfm_danpipeline_tpu.utils.synthscene import make_courtyard_scene
 from sfm_danpipeline_torch.config import FeatureConfig
 from sfm_danpipeline_torch.ops import sift as t_sift
+from torch_testing import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from sfm_danpipeline_tpu.ba.reference import solve_reference_problem
+from sfm_danpipeline_torch.ba.reference import solve_reference_problem
 from sfm_danpipeline_tpu.ba.solver import run_ba as j_run_ba
 from sfm_danpipeline_tpu.config import BAConfig as JBAConfig
 from sfm_danpipeline_tpu.pipeline import tracks as j_tr
@@ -25,6 +25,7 @@ from sfm_danpipeline_torch.config import BAConfig
 from sfm_danpipeline_torch.pipeline import tracks as t_tr
 
 from test_ba import _problem_from_scene
+from torch_testing import one_torch_thread  # noqa: F401
 
 V, KMAX, CAP = 4, 64, 256
 
@@ -180,3 +181,25 @@ def test_frozen_points_match_oracle(synthetic_scene):
     assert not np.allclose(rt.points.numpy()[P // 2 :], np.asarray(prob_j.points)[P // 2 :])
     ref = solve_reference_problem(dataclasses.replace(prob_j, fix_pt=jnp.asarray(fix_pt)))
     assert abs(float(rt.final_cost) - ref.final_cost) / ref.final_cost < 0.01
+
+
+@pytest.mark.parametrize("shape", [(), (3,), (6, 3)])
+def test_segment_sum_is_the_scatter_sum(shape):
+    """ops/reduce's order-fixed sum by segment (the normal blocks use it)
+    against float64 `index_add_`: rtol 1e-6 (float32 sums in another order);
+    empty segments give zeros, one plan serves several tensors, and the same
+    call twice gives the same bits."""
+    from sfm_danpipeline_torch.ops.reduce import planned_sum, segment_plan
+
+    rng = np.random.default_rng(len(shape))
+    seg = torch.tensor(rng.integers(0, 17, 500))
+    seg[seg == 5] = 6  # segment 5 is empty
+    x = torch.tensor(rng.normal(size=(500,) + shape).astype(np.float32))
+    want = torch.zeros((20,) + shape, dtype=torch.float64).index_add_(0, seg, x.double())
+    plan = segment_plan(seg, 20)
+    got = planned_sum(x, plan)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    assert float(got[5].abs().sum()) == 0.0 and float(got[17:].abs().sum()) == 0.0
+    assert torch.equal(planned_sum(x, segment_plan(seg, 20)), got)
+    assert torch.equal(planned_sum(2 * x, plan), 2 * got)
+    assert planned_sum(x[:0], segment_plan(seg[:0], 4)).shape == (4,) + shape

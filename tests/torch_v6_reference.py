@@ -52,3 +52,57 @@ def reference_v6():
         colors=np.asarray(_keypoint_colors(scene.images, kp)),
         tables=tuple(np.asarray(a) for a in (ft_a, ft_b, vt_strict)),
     )
+
+
+def frontend_configs(config_module, detector: str, method: str = "bf"):
+    """The V=6 config of either package (`config_module`: its config module)
+    with another detector or matcher, at the ratio the CLI picks for it (0.9
+    for the binary descriptors, 0.8 for SIFT)."""
+    c = config_module
+    return c.PipelineConfig(
+        features=c.FeatureConfig(max_keypoints=V6_MAX_KEYPOINTS, detector=detector),
+        matching=c.MatchConfig(ratio=0.8 if detector == "sift" else 0.9, method=method),
+    )
+
+
+# The LK-flow matcher cannot bridge the V=6 arc's baseline; its runs use
+# four views of a narrower arc of the same room.
+FLOW_SCENE = dict(V6_SCENE, n_views=4, ring_fraction=0.02)
+
+
+@functools.lru_cache(maxsize=None)
+def reference_v6_frontend(detector: str, method: str = "bf"):
+    """The reference's SfMResult on the V=6 scene with another front end
+    (`detector` "akaze" / "orb"), or on FLOW_SCENE with `method` "flow"."""
+    import sfm_danpipeline_tpu.config as j_config
+    from sfm_danpipeline_tpu.pipeline.sfm import SfMPipeline
+    from sfm_danpipeline_tpu.utils.synthscene import make_courtyard_scene
+
+    scene = make_courtyard_scene(**(FLOW_SCENE if method == "flow" else V6_SCENE))
+    res = SfMPipeline(frontend_configs(j_config, detector, method)).run(
+        scene.images, scene.intrinsics
+    )
+    return SimpleNamespace(scene=scene, result=res)
+
+
+def check_front_end(detector: str, method: str) -> None:
+    """Both packages' SfMPipeline.run with this front end, held as the
+    module docstring of tests/test_torch_frontends.py says."""
+    import sfm_danpipeline_torch.config as t_config
+    from sfm_danpipeline_torch.pipeline.sfm import SfMPipeline
+
+    ref = reference_v6_frontend(detector, method)
+    res = SfMPipeline(frontend_configs(t_config, detector, method), device="cpu").run(
+        ref.scene.images, ref.scene.intrinsics
+    )
+    mj, mt = ref.result.metrics, res.metrics
+    n_views = ref.scene.images.n_images
+    assert mt["n_registered"] == mj["n_registered"] == n_views
+    assert sorted(res.registered_views) == sorted(ref.result.registered_views)
+    assert mt["n_components"] == mj["n_components"] == 1
+    assert abs(mt["n_keypoints_mean"] - mj["n_keypoints_mean"]) <= 0.01 * mj["n_keypoints_mean"]
+    assert mj["ba_rms_px"] < 1.5 and mt["ba_rms_px"] < 1.5, (mj["ba_rms_px"], mt["ba_rms_px"])
+    assert abs(mj["ba_rms_px"] - mt["ba_rms_px"]) < 0.3, (mj["ba_rms_px"], mt["ba_rms_px"])
+    assert abs(mj["n_points"] - mt["n_points"]) <= 0.15 * mj["n_points"], (mj["n_points"], mt["n_points"])
+    width = {"akaze": 512, "orb": 256, "sift": 128}[detector]
+    assert res.keypoints.descriptors.shape == (n_views, 1024, width)
