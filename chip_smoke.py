@@ -39,9 +39,27 @@ each printed on its own line; any failure raises and exits non-zero:
  10. SfMPipeline with the ORB detector (knn2 at D = 256 on real
      descriptors, held and timed) and with the LK-flow matcher over three
      RANSAC seeds, which launches no kernel;
+ 11. in-process sharding on the card: match_all_pairs_sharded over
+     [cuda:0] * 4 on the V=10 run's keypoints (45 pairs, no multiple of 4),
+     equal bit for bit to the unsharded call, and run_ba_sharded with 4
+     shards on the V=10 final problem against the one-device solve;
+ 12. two ranks on the one card: two processes of the command line with
+     --coordinator / --num-processes / --process-id (gloo, since NCCL takes
+     one rank per card) on the V=10 control scene written as PNG files, the
+     polish forced on (--sharded-min-obs 16): both ranks exit 0 with equal
+     digests, 10/10, RMS < 1 px, ATE < 1%, polish cost not increased;
+ 13. guided bridging: SfMPipeline on the V=20 arc with
+     geometry.guided_enable, held to the reference's registered-view count,
+     with its guided registrations and block realign printed beside the
+     reference's;
 
-then the kernel summary line (launches summed over every pipeline run), and
-as the last line the device record {"ok": true, "device": {...}}.
+then the kernel summary line (launches summed over every phase, the rank
+processes included), and as the last line the device record
+{"ok": true, "device": {...}}.
+
+Phase 13 runs in a process of its own beside phases 4-7, and the flow runs
+of phase 10 beside phase 12 (the runs are host-bound; no kernel is timed
+while another process runs); their lines are printed when they end.
 
 One-off measurements (stage timings of two commits, the determinism audit,
 the flow path over RANSAC seeds) are in tools/torch_stage_probe.py.
@@ -94,6 +112,32 @@ REF_FLOW_SEED_ATE_PCT = {0: 1.231, 1: 2.007, 4: 12.905}
 REF_FLOW_SEEDS_FAILED = (2, 3, 5)
 FLOW_SEEDS = (0, 1, 2)
 RESUME_AT_VIEWS = 6
+# The JAX reference's SfMPipeline on the V=20 arc with
+# geometry.guided_enable=True (`JAX_PLATFORMS=cpu python3
+# tools/guided_arc.py`, on a CPU): views 11-13 register by the guided
+# bridge, 14 by plain PnP; the guided block's realign finds no Sim(3) (2
+# inliers of 26 candidates), and views 15-19 form a second component that
+# does not merge: 15/20 registered, RMS 0.206 px, 1,685 points, ATE 28.38%
+# of the diameter (the guided chain lands in a wrong basin, which is why
+# guided bridging is off by default). The port must register at least as
+# many views, at least one of them guided, with RMS < 1 px; its guided
+# counts and ATE are printed beside these. The two runs part at view 11: the
+# maps already differ slightly in scale there, and the port's sweep picks
+# basin 1 with 201 votes where the reference picks basin 0 with 200.
+REF_GUIDED = {
+    "n_registered": 15, "n_guided_registered": 3, "block_realign_applied": None,
+    "ba_rms_px": 0.206, "n_points": 1685, "ate_pct": 28.38,
+}
+# Phase 12: the multi-process run's scene and the polish threshold that
+# forces the observation-sharded polish at this size.
+MH_VIEWS, MH_RING = 10, 0.2
+MH_SHARDED_MIN_OBS = 16
+MH_TIMEOUT_S = 420
+# Phases run in a process of their own beside the main sequence, with the
+# most each may take: the pipeline runs are host-bound (the card idles > 90%
+# of a run), so two of them side by side end in about the time of one.
+CHILD_TIMEOUT_S = {"guided": 600, "flow": 480}
+CHILD_MARK = "chip_smoke child launches: "
 
 
 def _require(cond, msg):
@@ -672,6 +716,283 @@ def run_flow_seeds():
     return launches
 
 
+def check_sharding(scene, res10, cfg):
+    """Phase 11: the in-process sharded matcher and BA over [cuda:0] * 4.
+    Returns the sharded matcher's launch counts."""
+    from sfm_danpipeline_torch.ba.problem import BAProblem
+    from sfm_danpipeline_torch.ba.sharded import run_ba_sharded
+    from sfm_danpipeline_torch.ba.solver import run_ba
+    from sfm_danpipeline_torch.ops.matching import match_all_pairs
+    from sfm_danpipeline_torch.parallel.matching import match_all_pairs_sharded
+    from sfm_danpipeline_torch.pipeline.tracks import observation_table_compact
+
+    shards = [torch.device("cuda", 0)] * 4
+    kp = res10.keypoints
+    n = kp.valid.shape[0]
+    pi, pj = (torch.as_tensor(a, dtype=torch.int32, device="cuda") for a in np.triu_indices(n, 1))
+    kw = dict(
+        ratio=max(cfg.matching.ratio, cfg.matching.registration_ratio),
+        max_matches=cfg.matching.max_matches, strict_ratio=cfg.matching.ratio, xy=kp.xy,
+        dup_radius=cfg.matching.dup_radius, dedup=cfg.matching.dedup_matches,
+    )
+    got, launches = _count_launches(
+        lambda: match_all_pairs_sharded(kp.descriptors, kp.valid, pi, pj, devices=shards, **kw)
+    )
+    plain = match_all_pairs(kp.descriptors, kp.valid, pi, pj, **kw)
+    equal = all(
+        torch.equal(getattr(got, f), getattr(plain, f))
+        for f in ("idx_a", "idx_b", "valid", "dist", "lowe")
+    )
+    print(
+        "sharding: match_all_pairs_sharded over [cuda:0] x 4, P=%d (padded to %d), K=%d, D=%d: "
+        "%d valid matches, every field %s the unsharded call's; knn2 launches %d"
+        % (
+            pi.numel(), -(-pi.numel() // 4) * 4, kp.valid.shape[1], kp.descriptors.shape[-1],
+            int(got.valid.sum()), "equal bit for bit to" if equal else "DIFFERENT from",
+            launches["knn2"],
+        )
+    )
+    _require(equal, "sharded matching differs from the unsharded call")
+    _require(launches["knn2"] == 4, f"sharded matching launched knn2 {launches['knn2']} times, not 4")
+
+    # The V=10 final problem with its points shaken as in phase 7, so that
+    # both solves descend over their whole budget.
+    st = res10.state
+    B = int(st.n_points)
+    pp = torch.tensor([scene.intrinsics.cx, scene.intrinsics.cy], dtype=torch.float32, device="cuda")
+    obs_cam, obs_pt, xy, w = observation_table_compact(st, kp.xy, pp, n_points=B)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    fix = torch.zeros(st.n_views, dtype=torch.bool, device="cuda")
+    fix[int(res10.metrics["baseline_pair_i"])] = True
+    prob = BAProblem(
+        cameras=st.cameras, focal=st.focal,
+        points=st.points_xyz[:B] + 0.01 * torch.randn((B, 3), generator=g, device="cuda"),
+        obs_cam=obs_cam, obs_pt=obs_pt, obs_xy=xy, obs_w=w, fix_cam=fix,
+        fix_focal=torch.tensor(not cfg.ba.optimize_focal, device="cuda"),
+    )
+    iters = 10
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    one, t_one = timed(lambda: run_ba(prob, cfg.ba, max_iterations=iters))
+    four, t_four = timed(lambda: run_ba_sharded(prob, cfg.ba, shards, max_iterations=iters))
+    cam_err = float(torch.max(torch.abs(four.cameras - one.cameras)))
+    cost_rel = abs(float(four.final_cost) - float(one.final_cost)) / max(float(one.final_cost), 1e-12)
+    print(
+        "sharding: run_ba_sharded over [cuda:0] x 4 on the V=10 final problem (%d observations, "
+        "%d points, points shaken by 0.01): %d iterations (one device %d), cost %.3f -> %.3f "
+        "(one device %.3f), final cost rel diff %.2e (rtol 1e-3), max |camera diff| %.2e "
+        "(atol 5e-4); %.3f s (one device %.3f s)"
+        % (
+            prob.n_obs, B, four.iterations, one.iterations, float(four.initial_cost),
+            float(four.final_cost), float(one.final_cost), cost_rel, cam_err, t_four, t_one,
+        )
+    )
+    _require(four.iterations == one.iterations, "sharded BA: another iteration count")
+    _require(cost_rel <= 1e-3, f"sharded BA: final cost {cost_rel} apart (rtol 1e-3)")
+    _require(cam_err <= 5e-4, f"sharded BA: cameras {cam_err} apart (atol 5e-4)")
+    _require(float(four.final_cost) < float(four.initial_cost), "sharded BA did not descend")
+    return launches
+
+
+def _write_scene(scene, directory):
+    """The scene as the command line reads it: PNG images and an OpenCV
+    calibration XML. Returns (image directory, calibration path)."""
+    from PIL import Image
+
+    img_dir = os.path.join(directory, "images")
+    os.makedirs(img_dir)
+    for i, im in enumerate(scene.images.color):
+        Image.fromarray(np.clip(np.round(im * 255), 0, 255).astype(np.uint8)).save(
+            os.path.join(img_dir, f"view_{i:03d}.png")
+        )
+    K = scene.intrinsics.K
+    xml = os.path.join(directory, "calib.xml")
+    with open(xml, "w") as f:
+        f.write(
+            '<?xml version="1.0"?>\n<opencv_storage>\n'
+            '<Camera_Matrix type_id="opencv-matrix"><rows>3</rows><cols>3</cols><dt>d</dt>\n'
+            f"<data>{' '.join(repr(float(v)) for v in K.reshape(-1))}</data></Camera_Matrix>\n"
+            '<Distortion_Coefficients type_id="opencv-matrix"><rows>1</rows><cols>5</cols>'
+            "<dt>d</dt>\n<data>0. 0. 0. 0. 0.</data></Distortion_Coefficients>\n"
+            "</opencv_storage>\n"
+        )
+    return img_dir, xml
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_two_ranks(workdir, t_single):
+    """Phase 12: the command line's multi-process mode, two ranks on the one
+    card. Returns the ranks' knn2 launches."""
+    import re
+
+    scene = courtyard(MH_VIEWS, MH_RING)
+    img_dir, xml = _write_scene(scene, os.path.join(workdir, "mh_scene"))
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    procs, outs = [], []
+    for r in range(2):
+        cmd = [
+            sys.executable, "-m", "sfm_danpipeline_torch.cli", "--images", img_dir,
+            "--calibration", xml, "--output", os.path.join(workdir, f"mh_out{r}"),
+            "--stages", "sfm", "--coordinator", f"localhost:{port}", "--num-processes", "2",
+            "--process-id", str(r), "--sharded-min-obs", str(MH_SHARDED_MIN_OBS),
+        ]
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env))
+    t0 = time.time()
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, MH_TIMEOUT_S - (time.time() - t0)))[0].decode())
+    finally:
+        for p in procs:  # a failed or late rank must not outlive the script
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    digests, launches, recs = [], 0, []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        _require(p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out[-3000:]}")
+        line = [ln for ln in out.splitlines() if f"rank {r}: registered" in ln]
+        _require(len(line) == 1, f"rank {r} printed no digest:\n{out[-3000:]}")
+        m = re.search(
+            r"registered (\[.*\]) camera sum (\S+) points (\d+) backend (\S+) knn2 launches (\d+)",
+            line[0],
+        )
+        digests.append(m.group(1, 2, 3))
+        launches += int(m.group(5))
+        with open(os.path.join(workdir, f"mh_out{r}", "metrics.jsonl")) as f:
+            rec = {x["stage"]: x for x in map(json.loads, f)}
+        recs.append(rec)
+        print(f"two ranks: {line[0].split('cli: ', 1)[-1]}; t_sfm {rec['timing']['t_sfm']:.3f} s")
+    m0 = recs[0]["sfm"]
+    with open(os.path.join(workdir, "mh_out0", "cameras.json")) as f:
+        cams = json.load(f)
+    ate_frac = ate_fraction(scene, cams["cameras"], cams["registered_views"])
+    print(
+        "two ranks: backend %s, %d/%d registered, RMS %.3f px, ATE %.4f%% of diameter, %d points, "
+        "polish cost %.4f -> %.4f over %d processes; t_sfm %s s against %.3f s for one process "
+        "(phase 4's t_total, in memory)"
+        % (
+            m0["dist_backend"], m0["n_registered"], MH_VIEWS, m0["ba_rms_px"], 100 * ate_frac,
+            m0["n_points"], m0["mh_polish_cost0"], m0["mh_polish_cost1"], m0["n_processes"],
+            " / ".join("%.3f" % rec["timing"]["t_sfm"] for rec in recs), t_single,
+        )
+    )
+    _require(digests[0] == digests[1], f"the ranks' reconstructions differ: {digests}")
+    _require(all(rec["sfm"].get("dist_backend") for rec in recs), "no dist_backend recorded")
+    _require(m0["n_registered"] == MH_VIEWS, f"two ranks: registered {m0['n_registered']}/{MH_VIEWS}")
+    _require(m0["ba_rms_px"] < 1.0, f"two ranks: BA RMS {m0['ba_rms_px']} px >= 1")
+    _require(ate_frac < 0.01, f"two ranks: ATE {ate_frac} of diameter >= 1%")
+    _require(
+        m0["mh_polish_cost1"] <= m0["mh_polish_cost0"],
+        f"two ranks: the polish raised the cost ({m0['mh_polish_cost0']} -> {m0['mh_polish_cost1']})",
+    )
+    _require(launches == 2, f"the ranks launched knn2 {launches} times, not once each")
+    return {"knn2": launches}
+
+
+def run_guided():
+    """Phase 13: SfMPipeline on the V=20 arc with guided bridging on."""
+    from sfm_danpipeline_torch.config import PipelineConfig
+    from sfm_danpipeline_torch.pipeline.sfm import SfMPipeline
+
+    scene = courtyard(20, 0.4)
+    cfg = PipelineConfig()
+    cfg = dataclasses.replace(cfg, geometry=dataclasses.replace(cfg.geometry, guided_enable=True))
+    res, launches = _count_launches(
+        lambda: SfMPipeline(cfg, device="cuda").run(scene.images, scene.intrinsics)
+    )
+    m = res.metrics
+    ate_frac = ate_fraction(scene, res.state.cameras.cpu().numpy(), res.registered_views)
+    stages = {k: round(v, 3) for k, v in m.items() if k.startswith("t_")}
+    print(f"guided V=20 stages (s): {json.dumps(stages)}")
+    print(
+        "guided V=20: registered %d/20 %s, %d by the guided bridge, block realign %s, "
+        "components %d (merged %d), RMS %.3f px, %d points, ATE %.4f%% of diameter, knn2 "
+        "launches %d; reference (JAX, CPU): registered %d, %d guided, block realign %s, RMS "
+        "%.3f px, %d points, ATE %.2f%%"
+        % (
+            m["n_registered"], res.registered_views, m["n_guided_registered"],
+            "applied %d" % m["block_realign_applied"] if "block_realign_applied" in m
+            else "not applied", m["n_components"], m["n_merged_components"], m["ba_rms_px"],
+            m["n_points"], 100 * ate_frac, launches["knn2"], REF_GUIDED["n_registered"],
+            REF_GUIDED["n_guided_registered"], REF_GUIDED["block_realign_applied"],
+            REF_GUIDED["ba_rms_px"], REF_GUIDED["n_points"], REF_GUIDED["ate_pct"],
+        )
+    )
+    _require(
+        m["n_registered"] >= REF_GUIDED["n_registered"],
+        f"guided: registered {m['n_registered']}, the reference {REF_GUIDED['n_registered']}",
+    )
+    _require(m["n_guided_registered"] >= 1, "guided: no view registered by the guided bridge")
+    _require(m["ba_rms_px"] < 1.0, f"guided: BA RMS {m['ba_rms_px']} px >= 1")
+    _require(launches["knn2"] == 1, f"guided: knn2 launched {launches['knn2']} times, not once")
+    return launches
+
+
+def _phase_child(name):
+    """Entry of a child process: run one phase, then print its launch counts
+    on a marked line for the parent."""
+    launches = {"guided": run_guided, "flow": run_flow_seeds}[name]()
+    print(CHILD_MARK + json.dumps(launches), flush=True)
+
+
+def _start_phase(name, logdir):
+    """Start phase `name` (a key of CHILD_TIMEOUT_S) in a child process whose
+    output goes to a file under `logdir`."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = open(os.path.join(logdir, f"{name}.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke._phase_child({name!r})"],
+        stdout=out, stderr=subprocess.STDOUT, cwd=here,
+        env=dict(os.environ, PYTHONPATH=here),
+    )
+    return name, proc, out, time.time()
+
+
+def _stop(child):
+    _, proc, out, _ = child
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    out.close()
+
+
+def _join_phase(child):
+    """Wait for a child phase within its time, print its output, and return
+    its launch counts; fails if it failed, printed no counts or ran late."""
+    name, proc, out, t0 = child
+    try:
+        proc.wait(timeout=max(1.0, CHILD_TIMEOUT_S[name] - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    late = proc.poll() is None
+    _stop(child)
+    with open(out.name) as f:
+        lines = f.read().splitlines()
+    launches = None
+    for line in lines:
+        if line.startswith(CHILD_MARK):
+            launches = json.loads(line[len(CHILD_MARK):])
+        else:
+            print(line)
+    print(f"phase {name} (own process): {time.time() - t0:.0f}s")
+    _require(not late, f"phase {name} ran past {CHILD_TIMEOUT_S[name]}s")
+    _require(proc.returncode == 0 and launches is not None, f"phase {name} exited {proc.returncode}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -697,18 +1018,35 @@ def main():
     print("".join(f"  {line}\n" for line in kernels.ptxas_report("knn2")), end="")
     knn2_row = check_knn2()
     launches = {}
-    scene10, res10, l4 = run_pipeline(10, 0.2, components=1)
-    scene20, res20, l5 = run_pipeline(20, 0.4, components=2)
-    l6 = run_dense(scene20, res20)
-    del scene20, res20
-    check_repeatability(scene10, res10)
-    with tempfile.TemporaryDirectory() as workdir:
-        run8, l8, paths, row512 = run_cli_akaze(scene10, workdir)
-        l9 = run_resume(scene10, workdir, run8, paths)
-    res_orb, cfg_orb, l10a, _ = run_frontend("ORB V=10", "orb", "bf", 0.2, REF_ORB, knn2_launches=1)
-    row256 = check_knn2_on_run("ORB run's descriptors", res_orb, cfg_orb)
-    l10b = run_flow_seeds()
-    for part in (l4, l5, l6, l8, l9, l10a, l10b):
+    # Phase 13 runs beside phases 4-7 and the flow runs of phase 10 beside
+    # phase 12, each in a process of its own; no kernel is timed while
+    # a child runs.
+    children = []
+    with tempfile.TemporaryDirectory() as logdir:
+        try:
+            children.append(_start_phase("guided", logdir))
+            scene10, res10, l4 = run_pipeline(10, 0.2, components=1)
+            scene20, res20, l5 = run_pipeline(20, 0.4, components=2)
+            l6 = run_dense(scene20, res20)
+            del scene20, res20
+            check_repeatability(scene10, res10)
+            l13 = _join_phase(children[-1])
+            with tempfile.TemporaryDirectory() as workdir:
+                run8, l8, paths, row512 = run_cli_akaze(scene10, workdir)
+                l9 = run_resume(scene10, workdir, run8, paths)
+            res_orb, cfg_orb, l10a, _ = run_frontend(
+                "ORB V=10", "orb", "bf", 0.2, REF_ORB, knn2_launches=1
+            )
+            row256 = check_knn2_on_run("ORB run's descriptors", res_orb, cfg_orb)
+            l11 = check_sharding(scene10, res10, _cli_config("sift"))
+            children.append(_start_phase("flow", logdir))
+            with tempfile.TemporaryDirectory() as workdir:
+                l12 = run_two_ranks(workdir, res10.metrics["t_total"])
+            l10b = _join_phase(children[-1])
+        finally:
+            for child in children:  # a failed phase must not leave a child running
+                _stop(child)
+    for part in (l4, l5, l6, l8, l9, l10a, l10b, l11, l12, l13):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
     print(f"chip_smoke: all phases in {time.time() - t_script:.0f}s")

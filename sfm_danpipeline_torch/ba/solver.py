@@ -15,7 +15,8 @@ lists do not change during a solve, so `run_ba` sorts them once
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import dataclasses
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -162,6 +163,10 @@ def schur_solve(
     return delta_c, delta_f, delta_p
 
 
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
 class BAResult(NamedTuple):
     cameras: torch.Tensor
     focal: torch.Tensor
@@ -176,31 +181,54 @@ def run_ba(
     problem: BAProblem,
     config: BAConfig = BAConfig(),
     max_iterations: Optional[int] = None,
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> BAResult:
     """LM loop: assemble -> Schur solve -> accept/reject, until the
     relative decrease falls under rtol in the Newton regime, lambda hits
     its cap, or the iteration budget (`max_iterations`, default
-    config.max_iterations) runs out."""
+    config.max_iterations) runs out.
+
+    `reduce` is the counterpart of the reference's `axis_name`: when the
+    problem's observation arrays are one shard of a larger table, it sums a
+    tensor over the shards (an all-reduce across processes,
+    parallel/distributed.py). It is applied to every cost and to every field
+    of the normal blocks, so the reduced camera system is solved replicated.
+    The default (none) is the single-device solve."""
     obs = (problem.obs_cam, problem.obs_pt, problem.obs_xy, problem.obs_w)
+    if reduce is None:
+        reduce = _identity
+    budget = config.max_iterations if max_iterations is None else int(max_iterations)
+    plans = segment_plans(problem) if budget > 0 else None
 
     def cost_of(cameras, focal, points):
-        return ba_cost(cameras, focal, points, *obs)
+        return reduce(ba_cost(cameras, focal, points, *obs))
 
-    budget = config.max_iterations if max_iterations is None else int(max_iterations)
+    def blocks_of(prob):
+        return NormalBlocks(*(reduce(b) for b in build_normal_blocks(prob, plans)[0]))
+
+    return lm_solve(problem, config, budget, cost_of, blocks_of)
+
+
+def lm_solve(
+    problem: BAProblem,
+    config: BAConfig,
+    budget: int,
+    cost_of: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
+    blocks_of: Callable[[BAProblem], NormalBlocks],
+) -> BAResult:
+    """The LM iteration of `run_ba` around two callables: `cost_of(cameras,
+    focal, points)`, the total cost, and `blocks_of(problem)`, the total
+    normal blocks at the problem's parameters (ba/sharded.py sums both over
+    observation shards)."""
     cameras, focal, points = problem.cameras, problem.focal, problem.points
     c0 = cost_of(cameras, focal, points)
     cur = c0
     lam = torch.tensor(config.init_lambda, dtype=torch.float32, device=c0.device)
     it = 0
     done = torch.tensor(False, device=c0.device)
-    plans = segment_plans(problem) if budget > 0 else None
     while it < budget:
-        prob = BAProblem(
-            cameras=cameras, focal=focal, points=points, obs_cam=problem.obs_cam,
-            obs_pt=problem.obs_pt, obs_xy=problem.obs_xy, obs_w=problem.obs_w,
-            fix_cam=problem.fix_cam, fix_focal=problem.fix_focal, fix_pt=problem.fix_pt,
-        )
-        blocks, _ = build_normal_blocks(prob, plans)
+        prob = dataclasses.replace(problem, cameras=cameras, focal=focal, points=points)
+        blocks = blocks_of(prob)
         dc, df, dp = schur_solve(blocks, lam, problem.fix_cam, problem.fix_focal)
         new_cams, new_focal, new_points = cameras + dc, focal + df, points + dp
         new_cost = cost_of(new_cams, new_focal, new_points)

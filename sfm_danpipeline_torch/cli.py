@@ -3,17 +3,26 @@
     python -m sfm_danpipeline_torch.cli --images DIR --calibration XML \
         --output OUT [--stages sfm,dense,filter,mesh,segment,dendrometry] \
         [--detector sift|akaze|orb] [--matcher bf|flow] [--checkpoint FILE] \
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--coordinator HOST:PORT --num-processes N
+        --process-id I]
 
 Port of sfm_danpipeline_tpu/cli.py: the reference's 3-stage flow
 (main.cpp:18-87: SfM map, segmentation, dendrometry) plus the dense, filter
 and mesh stages, with artifact files in place of the blocking viewers:
 sparse.ply, cameras.json, dense.ply, MAP3D.pcd, filtered.ply, mesh.obj,
 segmentation_labels.npy, dendrometry.json, metrics.jsonl. Same flags,
-defaults, stage order, gauge guards and exit codes, on one device: the CUDA
-card unless `--device cpu` is given. `main` parses and loads; `run_stages`
-runs the stages on in-memory images, so a caller without image files (or
-without PIL) can drive every stage.
+defaults, stage order, gauge guards and exit codes, on the CUDA card unless
+`--device cpu` is given. `main` parses and loads; `run_stages` runs the
+stages on in-memory images, so a caller without image files (or without
+PIL) can drive every stage.
+
+Multi-process mode: launch one process per rank with the same arguments plus
+`--coordinator HOST:PORT --num-processes N --process-id I`. Each process
+joins the job (parallel/distributed.initialize, before anything touches the
+card) and the sfm stage runs parallel/distributed.run_sfm_multihost: sharded
+features and matching, the incremental loop on rank 0, the broadcast, and
+the multi-process polish. Every rank then runs the later stages on the same
+reconstruction and writes its own artifacts under `--output`.
 """
 from __future__ import annotations
 
@@ -97,10 +106,21 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--coordinator", default=None, metavar="HOST:PORT",
-        help="multi-host mode (one process per host); not ported yet",
+        help="multi-process mode: the rendezvous address (a tcp:// store "
+        "there; any free port on rank 0's host). Launch one process per rank "
+        "with identical arguments plus --num-processes / --process-id; the "
+        "sfm stage then runs the sharded input stages, rank 0's incremental "
+        "loop and the multi-process polish (parallel/distributed."
+        "run_sfm_multihost)",
     )
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
+    p.add_argument(
+        "--sharded-min-obs", type=int, default=None,
+        help="observations from which a global bundle adjustment runs "
+        "sharded (the multi-process polish; the final BA over several "
+        "cards); default: the config's ba.sharded_min_obs",
+    )
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -120,6 +140,11 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
         ),
         matching=dataclasses.replace(cfg.matching, ratio=ratio, method=args.matcher),
         geometry=dataclasses.replace(cfg.geometry, seed=args.seed),
+        ba=dataclasses.replace(
+            cfg.ba, sharded_min_obs=(
+                cfg.ba.sharded_min_obs if args.sharded_min_obs is None else args.sharded_min_obs
+            ),
+        ),
     )
 
 
@@ -144,9 +169,12 @@ def run_stages(
     checkpoint: Optional[str] = None,
     viz: bool = False,
     run_ba_every_view: bool = True,
+    distributed: bool = False,
 ) -> StagesRun:
     """Run `stages` (any of STAGES, in the fixed stage order) on in-memory
-    images and write every artifact under `output`."""
+    images and write every artifact under `output`. `distributed`: the
+    process has joined a multi-process job (parallel/distributed.initialize)
+    and the sfm stage runs run_sfm_multihost."""
     dev = require_device(device)
     unknown = [s for s in stages if s not in STAGES]
     if unknown:
@@ -163,7 +191,7 @@ def run_stages(
 
         run.code = _run_stages(
             run, images, intrinsics, cfg, output, stages, dev, checkpoint, viz,
-            run_ba_every_view, emit, timer,
+            run_ba_every_view, distributed, emit, timer,
         )
         emit("timing", timer.as_metrics())
     return run
@@ -171,7 +199,7 @@ def run_stages(
 
 def _run_stages(
     run, images, intrinsics, cfg, output, stages, dev, checkpoint, viz,
-    run_ba_every_view, emit, timer,
+    run_ba_every_view, distributed, emit, timer,
 ) -> int:
     points = colors = None
     state = None
@@ -191,9 +219,17 @@ def _run_stages(
         with timer.stage("sfm"):
             # checkpoint_path enables per-view mid-run checkpointing and
             # auto-resume from a previous kill.
-            res = SfMPipeline(cfg, checkpoint_path=checkpoint, device=dev).run(
-                images, intrinsics, run_ba_every_view=run_ba_every_view
-            )
+            if distributed:
+                from sfm_danpipeline_torch.parallel import distributed as D
+
+                res = D.run_sfm_multihost(
+                    images, intrinsics, cfg, run_ba_every_view=run_ba_every_view,
+                    checkpoint_path=checkpoint, device=dev,
+                )
+            else:
+                res = SfMPipeline(cfg, checkpoint_path=checkpoint, device=dev).run(
+                    images, intrinsics, run_ba_every_view=run_ba_every_view
+                )
         run.sfm = res
         state = res.state
         points, colors = res.points, res.colors
@@ -409,25 +445,48 @@ def main(argv=None) -> int:
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(levelname).1s %(name)s: %(message)s",
     )
-    if args.coordinator is not None or args.num_processes is not None or args.process_id is not None:
-        raise NotImplementedError(
-            "multi-host mode (--coordinator / --num-processes / --process-id) "
-            "is not ported yet (ROADMAP Queue 1 step 15, multi-device)"
-        )
     from sfm_danpipeline_torch.io.calibration import load_calibration
     from sfm_danpipeline_torch.io.images import load_images
 
-    require_device(args.device)  # before any loading: no card, no run
-    stages = [s.strip() for s in args.stages.split(",") if s.strip()]
-    cfg = config_from_args(args)
-    images = load_images(args.images, cfg.images)
-    intrinsics = load_calibration(args.calibration)
-    log.info("%d images @ %s, fx=%.1f", images.n_images, images.shape, intrinsics.fx)
-    return run_stages(
-        images, intrinsics, cfg, args.output, stages, device=args.device,
-        checkpoint=args.checkpoint, viz=args.viz,
-        run_ba_every_view=not args.no_ba_every_view,
-    ).code
+    device = require_device(args.device)  # before any loading: no card, no run
+    distributed = args.coordinator is not None
+    if distributed:
+        if args.num_processes is None or args.process_id is None:
+            raise SystemExit("--coordinator needs --num-processes and --process-id")
+        from sfm_danpipeline_torch.parallel import distributed as D
+
+        # Joins the job and picks this rank's card before anything touches it.
+        device = D.initialize(args.coordinator, args.num_processes, args.process_id, device)
+    try:
+        stages = [s.strip() for s in args.stages.split(",") if s.strip()]
+        cfg = config_from_args(args)
+        images = load_images(args.images, cfg.images)
+        intrinsics = load_calibration(args.calibration)
+        log.info("%d images @ %s, fx=%.1f", images.n_images, images.shape, intrinsics.fx)
+        run = run_stages(
+            images, intrinsics, cfg, args.output, stages, device=device,
+            checkpoint=args.checkpoint, viz=args.viz,
+            run_ba_every_view=not args.no_ba_every_view, distributed=distributed,
+        )
+        if distributed and run.sfm is not None:
+            log.info("rank %d: %s", args.process_id, rank_summary(run.sfm))
+        return run.code
+    finally:
+        if distributed:
+            D.shutdown()
+
+
+def rank_summary(res) -> str:
+    """One line that tells the ranks' reconstructions apart: the registered
+    views, the sum of the cameras, the point count, and how often the knn2
+    kernel was launched in this process."""
+    from sfm_danpipeline_torch.ops.matching import knn2
+
+    return (
+        f"registered {res.registered_views} camera sum "
+        f"{float(res.state.cameras.double().sum()):.9e} points {len(res.points)} "
+        f"backend {res.metrics.get('dist_backend')} knn2 launches {knn2.launches}"
+    )
 
 
 if __name__ == "__main__":

@@ -211,20 +211,17 @@ def find_2d3d(
     return p, match_feat_new, mask & state.points_valid[p]
 
 
-def retriangulate_points(
-    state: ReconstructionState, keypoints_xy: torch.Tensor, K: torch.Tensor
-) -> ReconstructionState:
-    """Re-estimate every point by multi-view DLT from its track under the
-    current poses (smallest eigenvector of the accumulated 4x4 normal
-    matrix). Points with < 2 live observations, a degenerate solve or a
-    failed cheirality majority keep their position. The eigenvector's sign
-    cancels in X = h[:3] / h[3]."""
+def masked_dlt(
+    state: ReconstructionState, keypoints_xy: torch.Tensor, K: torch.Tensor,
+    obs_mask: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-view DLT of every point from the observations `obs_mask` (P, V)
+    selects, under the current poses: the smallest eigenvector of the
+    accumulated 4x4 normal matrix (its sign cancels in X = h[:3] / h[3]).
+    Returns (X (P, 3), ok (P,)): ok where >= 2 observations are selected,
+    the solve is not degenerate, a majority of them see X in front, and X is
+    finite."""
     P, V = state.track_feat.shape
-    has = (
-        (state.track_feat >= 0)
-        & state.camera_valid[None, :]
-        & state.points_valid[:, None]
-    )
     feat = torch.clamp(state.track_feat, min=0).long()
     xy = keypoints_xy[torch.arange(V, device=feat.device)[None, :], feat]
     xn = (xy[..., 0] - K[0, 2]) / K[0, 0]
@@ -234,24 +231,37 @@ def retriangulate_points(
     Pm = torch.cat([R, t[:, :, None]], dim=-1)
     r1 = xn[..., None] * Pm[None, :, 2, :] - Pm[None, :, 0, :]
     r2 = yn[..., None] * Pm[None, :, 2, :] - Pm[None, :, 1, :]
-    w = has.to(torch.float32)[..., None]
+    w = obs_mask.to(torch.float32)[..., None]
     ATA = torch.einsum("pva,pvb->pab", r1 * w, r1) + torch.einsum("pva,pvb->pab", r2 * w, r2)
-    n_obs = torch.sum(has, dim=1)
+    n_obs = torch.sum(obs_mask, dim=1)
     # Only rows that can be used are solved, in chunks: cuSOLVER's batched
     # eigh refuses a batch the size of the whole capacity.
     h = torch.zeros((P, 4), dtype=ATA.dtype, device=ATA.device)
-    for rows in torch.nonzero(state.points_valid & (n_obs >= 2))[:, 0].split(8192):
+    for rows in torch.nonzero(n_obs >= 2)[:, 0].split(8192):
         h[rows] = torch.linalg.eigh(ATA[rows])[1][..., 0]
     ok_h = torch.abs(h[:, 3]) > 1e-9
     X = h[:, :3] / torch.where(ok_h, h[:, 3], torch.ones_like(h[:, 3]))[:, None]
     z = torch.einsum("vj,pj->pv", R[:, 2, :], X) + t[None, :, 2]
-    front = torch.sum((z > 0) & has, dim=1)
-    use = (
-        state.points_valid & ok_h & (n_obs >= 2) & (front * 2 >= n_obs)
-        & torch.all(torch.isfinite(X), dim=-1)
+    front = torch.sum((z > 0) & obs_mask, dim=1)
+    ok = ok_h & (n_obs >= 2) & (front * 2 >= n_obs) & torch.all(torch.isfinite(X), dim=-1)
+    return X, ok
+
+
+def retriangulate_points(
+    state: ReconstructionState, keypoints_xy: torch.Tensor, K: torch.Tensor
+) -> ReconstructionState:
+    """Re-estimate every point by multi-view DLT from its track under the
+    current poses (`masked_dlt` over its live observations). Points with < 2
+    live observations, a degenerate solve or a failed cheirality majority
+    keep their position."""
+    has = (
+        (state.track_feat >= 0)
+        & state.camera_valid[None, :]
+        & state.points_valid[:, None]
     )
+    X, ok = masked_dlt(state, keypoints_xy, K, has)
     return dataclasses.replace(
-        state, points_xyz=torch.where(use[:, None], X, state.points_xyz)
+        state, points_xyz=torch.where(ok[:, None], X, state.points_xyz)
     )
 
 

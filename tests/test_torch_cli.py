@@ -170,7 +170,10 @@ def test_parser_has_the_reference_flags_plus_device():
     def flags(parser):
         return {s for a in parser._actions for s in a.option_strings}
 
-    assert flags(cli.build_parser()) == flags(j_build_parser()) | {"--device"}
+    # Beyond the reference: --device, and --sharded-min-obs (the size from
+    # which the multi-process polish runs sharded, a config field the
+    # reference's command line cannot set).
+    assert flags(cli.build_parser()) == flags(j_build_parser()) | {"--device", "--sharded-min-obs"}
     ja = j_build_parser().parse_args(["--images", "a", "--calibration", "b"])
     ta = cli.build_parser().parse_args(["--images", "a", "--calibration", "b"])
     for k, v in vars(ja).items():
@@ -309,7 +312,8 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA card"):
             cli.main(args)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    # Multi-process mode needs the job's size and this process's rank.
+    with pytest.raises(SystemExit, match="--num-processes and --process-id"):
         cli.main(args + ["--device", "cpu", "--coordinator", "localhost:1234"])
     with pytest.raises(ValueError, match="unknown stage"):
         cli.run_stages(None, None, PipelineConfig(), str(tmp_path / "o"), ["sfm", "polish"], device="cpu")

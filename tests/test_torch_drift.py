@@ -214,6 +214,19 @@ def test_stage_timer_and_profiler_trace(tmp_path):
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
 
 
+def test_broadcast_metrics_list_equal():
+    """The metrics rank 0 broadcasts with the state: the port's module-level
+    copy of the list the reference keeps inside run_sfm_multihost."""
+    from sfm_danpipeline_tpu.parallel import distributed as j_dist
+    from sfm_danpipeline_torch.parallel import distributed as t_dist
+
+    lists = [
+        c for c in j_dist.run_sfm_multihost.__code__.co_consts
+        if isinstance(c, tuple) and "ba_rms_px" in c
+    ]
+    assert lists == [t_dist._BCAST_METRICS]
+
+
 def test_cli_and_new_modules_load_no_jax():
     """A fresh interpreter imports the command line and every module added with it
     with neither JAX nor the reference package loaded."""
@@ -222,7 +235,8 @@ def test_cli_and_new_modules_load_no_jax():
         for m in ("cli", "ops.akaze", "ops.orb", "ops.flow", "analysis.filtering",
                   "analysis.segmentation", "analysis.normals", "analysis.dendrometry",
                   "mvs.meshing", "utils.checkpoint", "utils.profiling", "utils.flops",
-                  "utils.viz", "io.ply", "io.native", "io.pmvs_export", "ba.reference"):
+                  "utils.viz", "io.ply", "io.native", "io.pmvs_export", "ba.reference",
+                  "ba.sharded", "parallel.matching", "parallel.distributed", "pipeline.guided"):
             importlib.import_module("sfm_danpipeline_torch." + m)
         print("jax" in sys.modules, sorted(k for k in sys.modules if k.startswith("sfm_danpipeline_tpu")))
         """)

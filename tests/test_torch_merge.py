@@ -10,11 +10,18 @@ splits the reference's V=6 reconstruction into A = {0,1,2} and B = {3,4,5},
 moves B by a known Sim(3), and runs both packages' merge attempts: both
 must accept with the same stats and recover the scale within 1e-3; the
 merged cameras agree within 1e-4 before the attempt's bundle adjustment
-and within 1e-3 after it. The looser bound is the BA's own: started from
-one identical merged state, the two packages' 8-iteration BAs end 7.4e-4
-apart in camera parameters at final costs equal to 2e-6 relative (a flat
-cost valley in float32), so no merge can be held tighter than that.
+and within 1e-3 after it. The attempt's BA runs on both sides with the
+budget and tolerance of MERGE_BA, so that each LM loop stops by its own
+convergence test. With the defaults (8 iterations, rtol 1e-8, a relative
+decrease below float32's resolution of the cost) the loop can only end on
+its iteration cap or its damping cap, after steps accepted or rejected on
+the cost's last bits: the merged state is already at its minimum, those
+steps wander along a flat valley, and the two packages' cameras ended
+7-12e-4 apart, the gap following the number of torch threads. Converged,
+they agree within 3e-6 at 1-8 threads.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,7 +36,13 @@ from sfm_danpipeline_torch.ops import similarity as t_sim
 from sfm_danpipeline_torch.ops.lie import exp_so3, log_so3
 from sfm_danpipeline_torch.pipeline import merge as t_merge
 from test_similarity import _random_sim3, _two_component_states
+from torch_testing import one_torch_thread  # noqa: F401
 from torch_v6_reference import STATE_FIELDS, reference_v6
+
+# The merge attempt's BA in this file's configs: a budget and a relative
+# decrease under which both packages' LM loops stop converged (see the
+# module docstring).
+MERGE_BA = dict(intermediate_iterations=50, rtol=1e-4)
 
 
 def _t(a, dtype=None):
@@ -234,7 +247,10 @@ def merge_runs():
     from sfm_danpipeline_torch.pipeline.sfm import merge_attempt_step
 
     ref = reference_v6()
-    cfg = ref.config
+    cfg = dataclasses.replace(
+        ref.config,
+        ba=dataclasses.replace(ref.config.ba, **MERGE_BA),
+    )
     st_a = _keep_views(ref.state, A_VIEWS)
     st_b = _move(_keep_views(ref.state, B_VIEWS))
     ja, jb = JState(**{k: jnp.asarray(v) for k, v in st_a.items()}), JState(**{k: jnp.asarray(v) for k, v in st_b.items()})
@@ -287,6 +303,9 @@ def merge_runs():
         t_merge.merge_components(ta, tb, t_simres.sim, o[2], o[3], t_simres.inliers),
     )
     tcfg = PipelineConfig(features=FeatureConfig(max_keypoints=cfg.features.max_keypoints))
+    tcfg = dataclasses.replace(
+        tcfg, ba=dataclasses.replace(tcfg.ba, **MERGE_BA)
+    )
     t_state, t_stats = merge_attempt_step(
         None, interop.state_from_numpy(st_a), interop.state_from_numpy(st_b), B_VIEWS, A_VIEWS,
         tuple(_t(a) for a in ref.tables), _t(ref.keypoints_xy), _t(ref.colors), _t(pp), _t(K),
