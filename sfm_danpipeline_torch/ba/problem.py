@@ -42,3 +42,36 @@ class BAProblem:
     @property
     def n_obs(self) -> int:
         return self.obs_cam.shape[0]
+
+
+def make_problem(
+    cameras: torch.Tensor,
+    focal,
+    points: torch.Tensor,
+    obs_cam: torch.Tensor,
+    obs_pt: torch.Tensor,
+    obs_xy: torch.Tensor,
+    obs_w: torch.Tensor,
+    fix_cam: Optional[torch.Tensor] = None,
+    fix_focal: bool = False,
+) -> BAProblem:
+    """A BAProblem from array-likes, in the field types BA expects (float32,
+    int32 indices, bool masks) on the cameras' device; no camera is fixed
+    unless `fix_cam` says so."""
+    cameras = torch.as_tensor(cameras, dtype=torch.float32)
+    dev = cameras.device
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    def i32(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=dev)
+
+    if fix_cam is None:
+        fix_cam = torch.zeros((cameras.shape[0],), dtype=torch.bool, device=dev)
+    return BAProblem(
+        cameras=cameras, focal=f32(focal), points=f32(points),
+        obs_cam=i32(obs_cam), obs_pt=i32(obs_pt), obs_xy=f32(obs_xy), obs_w=f32(obs_w),
+        fix_cam=torch.as_tensor(fix_cam, dtype=torch.bool, device=dev),
+        fix_focal=torch.as_tensor(fix_focal, dtype=torch.bool, device=dev),
+    )

@@ -10,7 +10,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from sfm_danpipeline_torch.ops.ransac import ransac
+from sfm_danpipeline_torch.ops.lie import matmul3
+from sfm_danpipeline_torch.ops.ransac import gather_rows, linalg_in_slices, ransac
+from sfm_danpipeline_torch.ops.reduce import fixed_sum
 
 
 def _similarity(s, mx, my):
@@ -56,15 +58,15 @@ def _dlt_rows(n1: torch.Tensor, n2: torch.Tensor) -> torch.Tensor:
 def _denormalize(Hn, s1, m1, s2, m2):
     T1 = _similarity(s1, m1[..., 0], m1[..., 1])
     T2inv = _similarity_inv(s2, m2[..., 0], m2[..., 1])
-    H = T2inv @ Hn @ T1
+    H = matmul3(matmul3(T2inv, Hn), T1)
     h22 = H[..., 2, 2]
     h22 = torch.where(torch.abs(h22) < 1e-12, torch.full_like(h22, 1e-12), h22)
     return H / h22[..., None, None]
 
 
 def _homography_from_four(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-    """DLT from 4 correspondences, batched: x1, x2 (H, 4, 2) pixels ->
-    (H, 3, 3) mapping x1 -> x2, Hartley-normalized for f32 conditioning."""
+    """DLT from 4 correspondences, batched: x1, x2 (..., 4, 2) pixels ->
+    (..., 3, 3) mapping x1 -> x2, Hartley-normalized for f32 conditioning."""
 
     def norm(x):
         mean = torch.mean(x, dim=-2)
@@ -77,34 +79,40 @@ def _homography_from_four(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     r1, r2 = _dlt_rows(n1, n2)
     # Row order of the reference: (r1_0, r2_0, r1_1, r2_1, ...).
     A = torch.stack([r1, r2], dim=-2).reshape(x1.shape[:-2] + (-1, 9))
-    _, V = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    _, V = linalg_in_slices(torch.linalg.eigh, A.transpose(-1, -2) @ A)
     Hn = V[..., :, 0].reshape(x1.shape[:-2] + (3, 3))
     return _denormalize(Hn, s1, m1, s2, m2)
 
 
 def transfer_error(H: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-    """Forward transfer error |H x1 - x2| in pixels. H (..., 3, 3), x (M, 2)
-    -> (..., M)."""
-    h = torch.cat([x1, torch.ones_like(x1[:, :1])], dim=-1)
-    p = h @ H.transpose(-1, -2)
-    w = p[..., 2:3]
-    w = torch.where(torch.abs(w) < 1e-12, torch.full_like(w, 1e-12), w)
-    return torch.linalg.norm(p[..., :2] / w - x2, dim=-1)
+    """Forward transfer error |H x1 - x2| in pixels. H (..., 3, 3), x (...,
+    M, 2) with leading dims broadcasting against H's -> (..., M)."""
+    x, y = x1[..., 0], x1[..., 1]
+    p = [H[..., i, 0, None] * x + H[..., i, 1, None] * y + H[..., i, 2, None] for i in range(3)]
+    w = torch.where(torch.abs(p[2]) < 1e-12, torch.full_like(p[2], 1e-12), p[2])
+    dx = p[0] / w - x2[..., 0]
+    dy = p[1] / w - x2[..., 1]
+    return torch.sqrt(dx * dx + dy * dy)
 
 
 def _homography_refit(x1, x2, w):
-    """Weighted DLT refit over an inlier set (w: (M,) 0/1 weights)."""
-    wsum = torch.sum(w) + 1e-12
-    m1 = torch.sum(x1 * w[:, None], dim=0) / wsum
-    m2 = torch.sum(x2 * w[:, None], dim=0) / wsum
-    r1 = torch.sqrt(torch.sum(w * torch.sum((x1 - m1) ** 2, -1)) / wsum) + 1e-12
-    r2 = torch.sqrt(torch.sum(w * torch.sum((x2 - m2) ** 2, -1)) / wsum) + 1e-12
-    s1 = math.sqrt(2.0) / r1
-    s2 = math.sqrt(2.0) / r2
-    rows1, rows2 = _dlt_rows((x1 - m1) * s1, (x2 - m2) * s2)
-    A = torch.cat([rows1 * w[:, None], rows2 * w[:, None]])
-    _, V = torch.linalg.eigh(A.T @ A)
-    Hn = V[:, 0].reshape(3, 3)
+    """Weighted DLT refit over each problem's inlier set: x (..., M, 2),
+    w (..., M) 0/1 weights -> (..., 3, 3)."""
+    wsum = fixed_sum(w) + 1e-12
+
+    def centre(x):
+        m = fixed_sum((x * w[..., None]).transpose(-1, -2)) / wsum[..., None]
+        d = x - m[..., None, :]
+        r = torch.sqrt(fixed_sum(w * (d[..., 0] ** 2 + d[..., 1] ** 2)) / wsum) + 1e-12
+        s = math.sqrt(2.0) / r
+        return d * s[..., None, None], s, m
+
+    n1, s1, m1 = centre(x1)
+    n2, s2, m2 = centre(x2)
+    rows1, rows2 = _dlt_rows(n1, n2)
+    A = torch.cat([rows1 * w[..., None], rows2 * w[..., None]], dim=-2).transpose(-1, -2)
+    _, V = linalg_in_slices(torch.linalg.eigh, fixed_sum(A[..., :, None, :] * A[..., None, :, :]))
+    Hn = V[..., :, 0].reshape(V.shape[:-2] + (3, 3))
     return _denormalize(Hn, s1, m1, s2, m2)
 
 
@@ -118,13 +126,15 @@ def homography_ransac(
     samples: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """RANSAC homography + weighted refit on the inliers. Returns (H,
-    inlier_mask, n_inliers); threshold is the pixel transfer error."""
+    inlier_mask, n_inliers); threshold is the pixel transfer error. x1, x2
+    (M, 2) and valid (M,) for one problem, or (P, M, 2) and (P, M) for P at
+    once (`samples` (H, 4) or (P, H, 4)); a batch's outputs gain the P."""
     H, inliers, _ = ransac(
         gen,
-        lambda idx: _homography_from_four(x1[idx], x2[idx]),
-        lambda Hs: transfer_error(Hs, x1, x2),
+        lambda idx: _homography_from_four(gather_rows(x1, idx), gather_rows(x2, idx)),
+        lambda Hs: transfer_error(Hs, x1[..., None, :, :], x2[..., None, :, :]),
         valid, n_hypotheses, 4, threshold, samples=samples,
     )
     H = _homography_refit(x1, x2, inliers.to(x1.dtype))
     inliers = (transfer_error(H, x1, x2) < threshold) & valid
-    return H, inliers, torch.sum(inliers)
+    return H, inliers, torch.sum(inliers, dim=-1)

@@ -24,6 +24,14 @@ def hat(w: torch.Tensor) -> torch.Tensor:
     )
 
 
+def matmul3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B for (..., 3, 3) matrices as elementwise products and sums. A
+    batch of one goes through another cuBLAS kernel than a larger batch and
+    rounds differently; this form gives each matrix the same bits in any
+    batch."""
+    return sum(A[..., :, k, None] * B[..., None, k, :] for k in range(3))
+
+
 def exp_so3(w: torch.Tensor) -> torch.Tensor:
     """Rodrigues formula: angle-axis (..., 3) -> rotation matrix (..., 3, 3)."""
     # keepdim: 0-dim intermediates mixed with Python scalars come out
@@ -40,7 +48,7 @@ def exp_so3(w: torch.Tensor) -> torch.Tensor:
     )
     W = hat(w)
     eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
-    return eye + a[..., None] * W + b[..., None] * (W @ W)
+    return eye + a[..., None] * W + b[..., None] * matmul3(W, W)
 
 
 def log_so3(R: torch.Tensor) -> torch.Tensor:

@@ -44,6 +44,17 @@ def project(
     )
 
 
+def project_normalized(X: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Project into normalized camera coordinates (z-divide, no K)."""
+    x_cam = X @ R.T + t
+    return x_cam[..., :2] / _safe_z(x_cam[..., 2:3], 1e-12)
+
+
+def depths(X: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Camera-frame z of world points (the cheirality test's input)."""
+    return X @ R[2] + t[2]
+
+
 def undistort_points(
     pts: torch.Tensor, K: torch.Tensor, dist: torch.Tensor, iters: int = 5
 ) -> torch.Tensor:

@@ -54,3 +54,19 @@ def binned_sum(values: torch.Tensor, bins: torch.Tensor, n_bins: int) -> torch.T
     ids = torch.arange(n_bins, device=bins.device)
     hit = bins[..., :, None] == ids  # (..., S, n_bins)
     return torch.sum(torch.where(hit, values[..., :, None], torch.zeros_like(values[..., :, None])), dim=-2)
+
+
+def fixed_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim as a pairwise tree of elementwise adds (zero
+    padded to a power of two): (..., S) -> (...). Each row's bits depend
+    only on that row, not on how many rows are summed at once. A library
+    reduction picks its order from the whole shape, so a batch of pairs and
+    a batch of one would round one pair's sum differently."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]

@@ -1,8 +1,11 @@
 """Pair scoring + two-view bootstrap.
 
 Port of sfm_danpipeline_tpu/pipeline/bootstrap.py (`findBestPair` +
-`baseReconstruction`, src/Sfm.cpp:408-585). The reference's `lax.scan`
-over pairs is a host loop here.
+`baseReconstruction`, src/Sfm.cpp:408-585). Pair scoring runs every pair
+in one batched computation with a leading pair axis, as the reference's
+`score_pairs` does in one dispatch (there a `lax.scan`, chosen for the TPU
+compiler). It is split over pairs only where the tables it holds would
+outgrow the memory budget (`ops/ransac.py pair_slices`).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from sfm_danpipeline_torch.ops.homography import homography_ransac
 from sfm_danpipeline_torch.ops.lie import log_so3
 from sfm_danpipeline_torch.ops.matching import PairMatches
 from sfm_danpipeline_torch.ops.projection import undistort_points
+from sfm_danpipeline_torch.ops.ransac import pair_slices, sample_indices
 from sfm_danpipeline_torch.ops.triangulation import triangulate_and_filter
 from sfm_danpipeline_torch.pipeline.tracks import ReconstructionState, add_points
 
@@ -43,9 +47,10 @@ def score_pair(
     config: PipelineConfig,
     samples: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
-    """Score one pair: both basin-diverse relative poses, the homography
+    """Score one pair, or a batch of pairs along a leading axis of `m`,
+    `pa` and `pb`: both basin-diverse relative poses, the homography
     degeneracy check (H/E inlier ratio gate), and usability. `samples`
-    injects the (essential (H, 8), homography (H, 4)) draws."""
+    injects the (essential (..., H, 8), homography (..., H, 4)) draws."""
     x1 = undistort_points(pa, K, dist)
     x2 = undistort_points(pb, K, dist)
     g = config.geometry
@@ -54,17 +59,17 @@ def score_pair(
         n_hypotheses=g.essential_ransac_iters,
         samples=None if samples is None else samples[0],
     )
-    pose = basins.basin(0)
+    n_pose = basins.n_inliers[..., 0]
     _, _, n_h = homography_ransac(
         gen, pa, pb, m.valid, threshold=g.homography_threshold_factor * image_max_dim,
         n_hypotheses=g.homography_ransac_iters,
         samples=None if samples is None else samples[1],
     )
-    n = torch.sum(m.valid)
-    ratio = pose.n_inliers / torch.clamp(n, min=1)
-    h_over_e = n_h / torch.clamp(pose.n_inliers, min=1)
+    n = torch.sum(m.valid, dim=-1)
+    ratio = n_pose / torch.clamp(n, min=1)
+    h_over_e = n_h / torch.clamp(n_pose, min=1)
     planar = h_over_e > g.max_seed_h_over_e
-    usable = (n >= config.matching.min_pair_matches) & pose.ok & ~planar
+    usable = (n >= config.matching.min_pair_matches) & basins.ok[..., 0] & ~planar
     return ratio, n, usable, h_over_e, basins.R, basins.t, basins.n_inliers
 
 
@@ -78,16 +83,31 @@ def score_pairs(
     dist: torch.Tensor,
     image_max_dim: float,
     config: PipelineConfig,
+    samples: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> PairScores:
-    """Score all pairs by pose-inlier ratio (host loop over pairs)."""
-    outs = []
-    for p, (i, j) in enumerate(zip(pair_i, pair_j)):
-        m = matches.pair(p)
-        pa = keypoints_xy[int(i)][m.idx_a.long()]
-        pb = keypoints_xy[int(j)][m.idx_b.long()]
-        outs.append(score_pair(gen, m, pa, pb, K, dist, image_max_dim, config))
+    """Score all pairs by pose-inlier ratio in one batched call. Every
+    pair's essential draws are taken first, then every pair's homography
+    draws (`samples` injects both, (NP, H, 8) and (NP, H, 4))."""
+    g = config.geometry
+    dev = keypoints_xy.device
+    pi = torch.as_tensor(pair_i, dtype=torch.long, device=dev)
+    pj = torch.as_tensor(pair_j, dtype=torch.long, device=dev)
+    pa = keypoints_xy[pi[:, None], matches.idx_a.long()]
+    pb = keypoints_xy[pj[:, None], matches.idx_b.long()]
+    if samples is None:
+        samples = (
+            sample_indices(gen, matches.valid, g.essential_ransac_iters, 8),
+            sample_indices(gen, matches.valid, g.homography_ransac_iters, 4),
+        )
+    outs = [
+        score_pair(
+            None, matches.pair(c), pa[c], pb[c], K, dist, image_max_dim, config,
+            samples=(samples[0][c], samples[1][c]),
+        )
+        for c in pair_slices(pi.shape[0], g.essential_ransac_iters, pa.shape[1], dev)
+    ]
     ratio, n, usable, h_over_e, R_rel, t_rel, n_inl = (
-        torch.stack([o[k] for o in outs]) for k in range(7)
+        torch.cat([o[k] for o in outs]) for k in range(7)
     )
     return PairScores(
         pose_inlier_ratio=torch.where(usable, ratio, torch.full_like(ratio, -1.0)),
@@ -98,6 +118,12 @@ def score_pairs(
         t_rel=t_rel,
         n_inliers=n_inl.to(torch.int32),
     )
+
+
+def best_pair(scores: PairScores) -> torch.Tensor:
+    """Argmax pose-inlier ratio among usable pairs, the lower pair on ties
+    (the reference's divergence from its ascending-map first hit)."""
+    return torch.argmax(scores.pose_inlier_ratio)
 
 
 def bootstrap_pair(

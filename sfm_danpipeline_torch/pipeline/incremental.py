@@ -2,8 +2,11 @@
 
 Port of sfm_danpipeline_tpu/pipeline/incremental.py (`addMoreViews` /
 `findCameraPosePNP` and the per-view triangulate/merge loop,
-src/Sfm.cpp:893-1210). The reference's scans over pairs and done views are
-host loops here; `done_views` is a plain list of registered view ids.
+src/Sfm.cpp:893-1210). The all-pairs epipolar prefilter is one batched
+computation over the pair axis, as the reference's vmap is (its 64-pair
+chunks exist only for the TPU compiler; here the pairs are split only where
+memory requires it). The reference's scans over done views are host loops
+here; `done_views` is a plain list of registered view ids.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from sfm_danpipeline_torch.ops.lie import exp_so3, log_so3
 from sfm_danpipeline_torch.ops.matching import PairMatches
 from sfm_danpipeline_torch.ops.pnp import solve_pnp_ransac
 from sfm_danpipeline_torch.ops.projection import undistort_points
+from sfm_danpipeline_torch.ops.ransac import pair_slices, sample_indices
 from sfm_danpipeline_torch.ops.triangulation import triangulate_and_filter
 from sfm_danpipeline_torch.pipeline.tracks import (
     ReconstructionState,
@@ -37,7 +41,8 @@ def epipolar_filter_matches(
     config: PipelineConfig,
     samples: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Prune one pair's matches to their two-view epipolar consensus, but
+    """Prune one pair's matches (pn, pd (M, 2), valid (M,)), or a batch's
+    along a leading pair axis, to their two-view epipolar consensus, but
     only when the consensus is credible (pose ok, >= 2*min_pose_points
     matches, >= 30% inliers); otherwise the raw matches pass through (PnP's
     P3P draws handle the low inlier rates of wide-baseline bridges)."""
@@ -47,9 +52,9 @@ def epipolar_filter_matches(
         focal=K[0, 0], threshold_px=g.essential_threshold_px,
         n_hypotheses=g.prefilter_ransac_iters, samples=samples,
     )
-    n = torch.sum(valid)
+    n = torch.sum(valid, dim=-1)
     use = pose.ok & (n >= 2 * g.min_pose_points) & (pose.n_inliers >= 0.3 * n)
-    return torch.where(use, valid & pose.inliers, valid)
+    return torch.where(use[..., None], valid & pose.inliers, valid)
 
 
 def epipolar_prefilter_table(
@@ -64,21 +69,26 @@ def epipolar_prefilter_table(
     dist: torch.Tensor,
     config: PipelineConfig,
     n_views: int,
+    samples: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Epipolar consensus of every pair's loose matches, scattered into the
-    oriented (V, V, M) validity table registration reads. (The reference's
-    64-pair chunking exists only for the TPU compiler.)"""
-    out = torch.zeros(
-        (n_views, n_views, idx_a.shape[1]), dtype=torch.bool, device=valid.device
-    )
-    for p, (i, j) in enumerate(zip(pair_i, pair_j)):
-        i, j = int(i), int(j)
-        filt = epipolar_filter_matches(
-            gen, keypoints_xy[i][idx_a[p].long()], keypoints_xy[j][idx_b[p].long()],
-            valid[p], K, dist, config,
-        )
-        out[i, j] = filt
-        out[j, i] = filt
+    """Epipolar consensus of every pair's loose matches in one batched call
+    (`samples` injects the (P, H, 8) draws), scattered into the oriented
+    (V, V, M) validity table registration reads."""
+    g = config.geometry
+    dev = valid.device
+    pi = torch.as_tensor(pair_i, dtype=torch.long, device=dev)
+    pj = torch.as_tensor(pair_j, dtype=torch.long, device=dev)
+    pn = keypoints_xy[pi[:, None], idx_a.long()]
+    pd = keypoints_xy[pj[:, None], idx_b.long()]
+    if samples is None:
+        samples = sample_indices(gen, valid, g.prefilter_ransac_iters, 8)
+    filt = torch.cat([
+        epipolar_filter_matches(None, pn[c], pd[c], valid[c], K, dist, config, samples=samples[c])
+        for c in pair_slices(pi.shape[0], g.prefilter_ransac_iters, valid.shape[1], dev)
+    ])
+    out = torch.zeros((n_views, n_views, valid.shape[1]), dtype=torch.bool, device=dev)
+    out[pi, pj] = filt
+    out[pj, pi] = filt
     return out
 
 

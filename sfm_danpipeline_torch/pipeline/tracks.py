@@ -17,6 +17,7 @@ from typing import Tuple
 import torch
 
 from sfm_danpipeline_torch.ops.lie import exp_so3
+from sfm_danpipeline_torch.ops.ransac import LINALG_BATCH
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,7 +238,7 @@ def masked_dlt(
     # Only rows that can be used are solved, in chunks: cuSOLVER's batched
     # eigh refuses a batch the size of the whole capacity.
     h = torch.zeros((P, 4), dtype=ATA.dtype, device=ATA.device)
-    for rows in torch.nonzero(n_obs >= 2)[:, 0].split(8192):
+    for rows in torch.nonzero(n_obs >= 2)[:, 0].split(LINALG_BATCH):
         h[rows] = torch.linalg.eigh(ATA[rows])[1][..., 0]
     ok_h = torch.abs(h[:, 3]) > 1e-9
     X = h[:, :3] / torch.where(ok_h, h[:, 3], torch.ones_like(h[:, 3]))[:, None]
@@ -317,6 +318,24 @@ def live_observations(state: ReconstructionState) -> torch.Tensor:
         & state.points_valid[:, None]
         & state.camera_valid[None, :]
     )
+
+
+def observation_table(
+    state: ReconstructionState,
+    keypoints_xy: torch.Tensor,
+    principal_point: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The whole track table as flat (P*V,) observation rows in (point,
+    view) order: (obs_cam, obs_pt, obs_xy minus the principal point, obs_w).
+    Rows that are no live observation carry weight 0, which BA ignores;
+    `observation_table_compact` keeps only the weighted rows."""
+    P, V = state.track_feat.shape
+    dev = state.track_feat.device
+    obs_pt = torch.arange(P, dtype=torch.int32, device=dev).repeat_interleave(V)
+    obs_cam = torch.arange(V, dtype=torch.int32, device=dev).repeat(P)
+    feat = torch.clamp(state.track_feat.reshape(-1), min=0).long()
+    xy = keypoints_xy[obs_cam.long(), feat] - principal_point
+    return obs_cam, obs_pt, xy, live_observations(state).reshape(-1).to(torch.float32)
 
 
 def observation_table_compact(

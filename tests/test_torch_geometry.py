@@ -73,6 +73,21 @@ def test_projection_and_undistortion_match():
     )
 
 
+def test_normalized_projection_and_depths_match():
+    rng = np.random.default_rng(4)
+    X = _rand(rng, 100, 3) + np.array([0, 0, 5], np.float32)
+    X[:3, 2] = [-5.0, 0.0, 1e-14]  # behind, on and at the camera plane
+    R = np.asarray(j_lie.exp_so3(jnp.asarray(_rand(rng, 3, scale=0.1))))
+    t = _rand(rng, 3, scale=0.2)
+    t[2] = 0.0
+    args_j = [jnp.asarray(a) for a in (X, R, t)]
+    args_t = [torch.tensor(a) for a in (X, R, t)]
+    _close(j_proj.project_normalized(*args_j), t_proj.project_normalized(*args_t), rtol=1e-5, atol=1e-6)
+    _close(j_proj.depths(*args_j), t_proj.depths(*args_t), rtol=1e-5, atol=1e-6)
+    z = t_proj.depths(*args_t).numpy()
+    assert z[0] < 0 and np.all(z[3:] > 0)
+
+
 def test_interp_samplers_match():
     rng = np.random.default_rng(2)
     img = rng.uniform(size=(3, 20, 30)).astype(np.float32)

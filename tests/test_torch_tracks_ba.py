@@ -107,6 +107,52 @@ def test_prune_and_find_2d3d_match(grown_states):
     np.testing.assert_allclose(xyt.numpy(), np.asarray(xyj)[real])
 
 
+def test_dense_observation_table_matches(grown_states):
+    """The dense (P*V) table: every track slot a row in (point, view) order,
+    equal to the reference's; its weighted rows are the compact table."""
+    sj, _ = grown_states
+    sj = dataclasses.replace(sj, camera_valid=jnp.asarray([True, True, False, True]))
+    st = interop.state_from_numpy(_np_state(sj))
+    rng = np.random.default_rng(6)
+    kp = rng.uniform(100, 400, (V, KMAX, 2)).astype(np.float32)
+    pp = np.array([250.0, 250.0], np.float32)
+    oj = j_tr.observation_table(sj, jnp.asarray(kp), jnp.asarray(pp))
+    ot = t_tr.observation_table(st, torch.tensor(kp), torch.tensor(pp))
+    assert ot[0].shape == (CAP * V,)
+    for a, b in zip(oj, ot):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    w = ot[3] > 0
+    assert 0 < int(w.sum()) < CAP * V
+    ct, ptt, xyt, wt = t_tr.observation_table_compact(st, torch.tensor(kp), torch.tensor(pp))
+    np.testing.assert_array_equal(ct.numpy(), ot[0][w].numpy())
+    np.testing.assert_array_equal(ptt.numpy(), ot[1][w].numpy())
+    np.testing.assert_array_equal(xyt.numpy(), ot[2][w].numpy())
+    np.testing.assert_array_equal(wt.numpy(), ot[3][w].numpy())
+
+
+def test_make_problem_matches_reference(synthetic_scene):
+    """make_problem from the same numpy arrays: equal fields and dtypes, and
+    the same BA run from it."""
+    from sfm_danpipeline_torch.ba.problem import make_problem as t_make_problem
+
+    prob_j = _problem_from_scene(synthetic_scene, cam_noise=0.01, pt_noise=0.02, obs_noise=0.5, seed=5)
+    args = {k: np.asarray(getattr(prob_j, k)) for k in (
+        "cameras", "focal", "points", "obs_cam", "obs_pt", "obs_xy", "obs_w", "fix_cam",
+    )}
+    prob_t = t_make_problem(**{k: v.astype(np.float64) if v.dtype.kind == "f" else v for k, v in args.items()})
+    want = {"cameras": torch.float32, "obs_cam": torch.int32, "obs_w": torch.float32,
+            "fix_cam": torch.bool, "fix_focal": torch.bool}
+    for k, dtype in want.items():
+        assert getattr(prob_t, k).dtype == dtype, k
+    for k in args:
+        np.testing.assert_array_equal(getattr(prob_t, k).numpy(), np.asarray(getattr(prob_j, k)), err_msg=k)
+    assert not bool(prob_t.fix_focal) and prob_t.fix_pt is None
+    assert not bool(t_make_problem(**{**args, "fix_cam": None}).fix_cam.any())
+    rj = j_run_ba(prob_j, JBAConfig(max_iterations=10))
+    rt = t_run_ba(prob_t, BAConfig(max_iterations=10))
+    assert abs(float(rt.final_cost) - float(rj.final_cost)) <= 1e-4 * float(rj.final_cost)
+
+
 def test_retriangulate_points_match(synthetic_scene):
     sc = synthetic_scene
     n = 60

@@ -2,11 +2,11 @@
 """Either package's SfMPipeline with guided bridging on, for its quality
 numbers on the rendered courtyard arc.
 
-    JAX_PLATFORMS=cpu python3 tools/guided_arc.py [--views 20] [--ring-fraction 0.4]
+    JAX_PLATFORMS=cpu python3 tools/guided_arc.py [--views 20] [--ring-fraction 0.4] [--seed 0]
     python3 tools/guided_arc.py --port [--device cuda|cpu] [--views 20] ...
 
-Runs SfMPipeline with `geometry.guided_enable=True` and otherwise the
-default config on `make_courtyard_scene(n_views, ring_fraction, seed=0)`
+Runs SfMPipeline with `geometry.guided_enable=True`, `geometry.seed` set to
+`--seed` (the RANSAC draws) and otherwise the default config on `make_courtyard_scene(n_views, ring_fraction, seed=0)`
 (480x640) and prints one JSON line: registered views, the views registered
 by the guided bridge, whether the block realign was applied, the final BA
 RMS, the point count, the trajectory error after similarity alignment as a
@@ -32,6 +32,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--views", type=int, default=20)
     ap.add_argument("--ring-fraction", type=float, default=0.4)
+    ap.add_argument("--seed", type=int, default=0, help="geometry.seed: the RANSAC draws")
     ap.add_argument("--port", action="store_true", help="run sfm_danpipeline_torch")
     ap.add_argument("--device", default="cuda", help="the port's device")
     ap.add_argument("-v", "--verbose", action="store_true", help="log every registration")
@@ -62,7 +63,9 @@ def main():
 
     scene = make_courtyard_scene(n_views=args.views, ring_fraction=args.ring_fraction, seed=0)
     base = PipelineConfig()
-    cfg = dataclasses.replace(base, geometry=dataclasses.replace(base.geometry, guided_enable=True))
+    cfg = dataclasses.replace(
+        base, geometry=dataclasses.replace(base.geometry, guided_enable=True, seed=args.seed)
+    )
     t0 = time.time()
     res = pipeline(cfg).run(scene.images, scene.intrinsics)
     wall = time.time() - t0
@@ -71,7 +74,7 @@ def main():
     g = scene.centers[regs]
     ate_pct = 100.0 * aligned_rmse(c, g) / float(np.linalg.norm(g.max(0) - g.min(0)))
     m = res.metrics
-    out = {"package": "sfm_danpipeline_torch" if args.port else "sfm_danpipeline_tpu"}
+    out = {"package": "sfm_danpipeline_torch" if args.port else "sfm_danpipeline_tpu", "seed": args.seed}
     out.update({k: m.get(k) for k in (
         "n_registered", "n_guided_registered", "block_realign_applied", "ba_rms_px",
         "n_points", "n_components", "n_merged_components",

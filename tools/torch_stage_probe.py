@@ -11,6 +11,43 @@ since its first slice, so `--root` may name an older checkout of the
 repository: run old, new, new, old in one call to compare two commits on one
 card.
 
+    python3 tools/torch_stage_probe.py time-baseline [--root DIR] [--scenes v10 v20] [--repeats 3]
+
+runs SfMPipeline on each scene (v10: the V=10 control, ring_fraction 0.2;
+v20: the V=20 arc, 0.4; ring50: the 50-view ring, ring_fraction 1.0, as
+tools/bench_scale.py builds it) `--repeats` times and prints, per scene,
+the median of each part of t_baseline: pair scoring, the all-pairs
+prefilter, the seed bootstrap (`_try_seed`) and the rest, each timed by
+wrapping the function with synchronized wall clocks, beside t_baseline,
+t_total, the registered views, RMS, ATE and the card's peak memory. The
+wrapped names exist in every commit of the port, so `--root` may name an
+older checkout: run old, new, new, old in one call.
+
+    python3 tools/torch_stage_probe.py profile [--scenes v10 v20]
+
+runs SfMPipeline once per scene under torch.profiler (host and device
+activity) after one unprofiled warm-up run, and prints the run's wall time,
+the device's busy time (the union of its kernel and copy intervals), the
+idle share (1 - busy / wall) and the top device rows: kernels and copies by
+name, with their summed time and count.
+
+    python3 tools/torch_stage_probe.py cli-akaze --out DIR
+
+runs the command line's stage runner with --detector akaze and every stage
+on the V=10 courtyard (the run chip_smoke.py phase 8 makes) and leaves its
+artifacts (dense.ply, filtered.ply, metrics.jsonl, ...) in DIR, for
+tools/reference_dense_analysis.py to read.
+
+    python3 tools/torch_stage_probe.py pair-batch-audit
+
+finds where a pair's two-view estimate depends on the batch around it: on
+the V=10 courtyard's strict matches, each stage of the pose search (the
+8-point fits, the Sampson table, the top 8, the cheirality pick, the
+polish) for every pair at once against the same pair alone, and the
+batched library calls under it (eigh, svd, bmm, solve_ex) on a batch
+against the same matrices one slice at a time, printing the largest
+difference of each.
+
     python3 tools/torch_stage_probe.py determinism-audit
 
 runs the four V=10 paths (SIFT, every command-line stage with AKAZE, ORB, LK
@@ -19,7 +56,7 @@ prints every operation PyTorch warns about. A run may end differently under
 that setting (cuBLAS takes another workspace, so last bits differ); the audit
 reports it, goes on, and exits 1 if any run stopped.
 
-    python3 tools/torch_stage_probe.py flow-seeds [--seeds 0 1 2 ...]
+    python3 tools/torch_stage_probe.py flow-seeds [--seeds 0 1 2 ...] [--device cpu] [--root DIR]
 
 runs SfMPipeline with the LK-flow matcher on the narrow V=10 arc
 (ring_fraction 0.05) once per RANSAC seed and prints registered views, the
@@ -108,6 +145,229 @@ def time_stages():
     return 0
 
 
+BASELINE_SCENES = {"v10": (10, 0.2), "v20": (20, 0.4), "ring50": (50, 1.0)}
+
+
+def _timed_parts():
+    """Wrap pair scoring, the prefilter and the seed bootstrap of the
+    pipeline module with synchronized wall clocks; returns (times, undo).
+    `_try_seed` also seeds later components: its first call is the one
+    inside t_baseline."""
+    from sfm_danpipeline_torch.pipeline import sfm
+
+    times = {"scoring": [], "prefilter": [], "seed": []}
+    saved = []
+
+    def wrap(owner, attr, key):
+        fn = getattr(owner, attr)
+        saved.append((owner, attr, fn))
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t0)
+            return out
+
+        setattr(owner, attr, timed)
+
+    wrap(sfm, "score_pairs", "scoring")
+    wrap(sfm, "epipolar_prefilter_table", "prefilter")
+    wrap(sfm.SfMPipeline, "_try_seed", "seed")
+
+    def undo():
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+    return times, undo
+
+
+def time_baseline(scenes, repeats):
+    from sfm_danpipeline_torch.config import PipelineConfig
+    from sfm_danpipeline_torch.pipeline.sfm import SfMPipeline
+    from sfm_danpipeline_torch.utils.synthscene import make_courtyard_scene
+
+    import sfm_danpipeline_torch
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(sfm_danpipeline_torch.__file__)))
+    for name in scenes:
+        n_views, ring = BASELINE_SCENES[name]
+        scene = make_courtyard_scene(n_views=n_views, ring_fraction=ring, seed=0)
+        runs = []
+        for _ in range(repeats):
+            torch.cuda.reset_peak_memory_stats()
+            times, undo = _timed_parts()
+            try:
+                res = SfMPipeline(PipelineConfig(), device="cuda").run(scene.images, scene.intrinsics)
+            finally:
+                undo()
+            m = res.metrics
+            parts = {k: v[0] if v else 0.0 for k, v in times.items()}
+            parts["rest"] = m["t_baseline"] - sum(parts.values())
+            runs.append(dict(
+                parts, t_baseline=m["t_baseline"], t_total=m["t_total"],
+                n_registered=m["n_registered"], ba_rms_px=m["ba_rms_px"],
+                n_points=m["n_points"], ate_pct=_ate_pct(scene, res),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            ))
+            del res
+        print(json.dumps({"time_baseline": {
+            "root": root, "scene": name, "n_views": n_views, "n_pairs": n_views * (n_views - 1) // 2,
+            "median": {k: float(np.median([r[k] for r in runs])) for k in runs[0]},
+            "runs": runs,
+        }}), flush=True)
+    return 0
+
+
+def _merged_length(intervals):
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total
+
+
+def profile_runs(scenes, top=15):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sfm_danpipeline_torch.config import PipelineConfig
+    from sfm_danpipeline_torch.pipeline.sfm import SfMPipeline
+    from sfm_danpipeline_torch.utils.synthscene import make_courtyard_scene
+
+    for name in scenes:
+        n_views, ring = BASELINE_SCENES[name]
+        scene = make_courtyard_scene(n_views=n_views, ring_fraction=ring, seed=0)
+        pipe = SfMPipeline(PipelineConfig(), device="cuda")
+        pipe.run(scene.images, scene.intrinsics)  # warm-up: allocator, cuBLAS / cuSOLVER handles
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = pipe.run(scene.images, scene.intrinsics)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = _merged_length((e.time_range.start, e.time_range.end) for e in dev) / 1e6
+
+        by_name = {}
+        for e in dev:
+            t, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
+        rows = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
+        print(json.dumps({"profile": {
+            "scene": name, "n_views": n_views, "wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1.0 - busy / wall, "device_events": len(dev),
+            "t_baseline_s": res.metrics["t_baseline"], "t_total_s": res.metrics["t_total"],
+            "top_device_rows": [
+                {"name": name[:90], "device_ms": us / 1e3, "launches": n} for name, (us, n) in rows[:top]
+            ],
+        }}), flush=True)
+    return 0
+
+
+def cli_akaze(out):
+    from sfm_danpipeline_torch import cli
+
+    scene = _scene(0.2)
+    run = cli.run_stages(scene.images, scene.intrinsics, _config("akaze"), out, list(cli.STAGES), device="cuda")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        for line in f:
+            if json.loads(line).get("stage") in ("dense", "filter", "dendrometry"):
+                print(line.strip()[:400])
+    return run.code
+
+
+def _max_diff(a, b):
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def pair_batch_audit(device="cuda"):
+    from sfm_danpipeline_torch.config import PipelineConfig
+    from sfm_danpipeline_torch.ops import epipolar as E
+    from sfm_danpipeline_torch.ops.matching import match_all_pairs
+    from sfm_danpipeline_torch.ops.projection import undistort_points
+    from sfm_danpipeline_torch.ops.ransac import gather_rows, sample_indices
+    from sfm_danpipeline_torch.ops.sift import detect_and_compute_batch
+
+    cfg = PipelineConfig()
+    scene = _scene(0.2)
+    kp = detect_and_compute_batch(torch.as_tensor(scene.images.gray, device=device), cfg.features)
+    V = kp.valid.shape[0]
+    pi, pj = (torch.as_tensor(a, dtype=torch.int32, device=device) for a in np.triu_indices(V, 1))
+    m = match_all_pairs(
+        kp.descriptors, kp.valid, pi, pj, ratio=cfg.matching.ratio, max_matches=cfg.matching.max_matches,
+        xy=kp.xy, dup_radius=cfg.matching.dup_radius, dedup=cfg.matching.dedup_matches,
+    )
+    K = torch.as_tensor(scene.intrinsics.K, dtype=torch.float32, device=device)
+    dist = torch.zeros(5, device=device)
+    x1 = undistort_points(kp.xy[pi.long()[:, None], m.idx_a.long()], K, dist)
+    x2 = undistort_points(kp.xy[pj.long()[:, None], m.idx_b.long()], K, dist)
+    valid = m.valid
+    idx = sample_indices(torch.Generator(device=device).manual_seed(0), valid, 512, 8)
+    rn2 = (2.5 / float(K[0, 0])) ** 2
+    out = {}
+
+    def record(name, a, b):
+        out[name] = max(out.get(name, 0.0), _max_diff(a, b))
+
+    # Library calls on a batch against the same matrices in slices of 512.
+    A = torch.randn(len(pi) * 512, 9, 9, device=device)
+    A = A @ A.transpose(-1, -2)
+    B3 = torch.randn(len(pi) * 512, 3, 3, device=device)
+    H6 = torch.randn(len(pi), 6, 6, device=device)
+    H6 = H6 @ H6.transpose(-1, -2) + torch.eye(6, device=device)
+    g6 = torch.randn(len(pi), 6, device=device)
+    for name, fn, X in (
+        ("eigh 9x9 vectors", lambda a: torch.linalg.eigh(a)[1], A[:8192]),
+        ("svd 3x3 U", lambda a: torch.linalg.svd(a)[0], B3[:8192]),
+        ("bmm 3x3", lambda a: a @ a, B3[:8192]),
+    ):
+        whole = fn(X)
+        record(name + " (slices of 512)", whole, torch.cat([fn(c) for c in X.split(512)]))
+        record(name + " (one at a time, first 64)", whole[:64], torch.cat([fn(c) for c in X[:64].split(1)]))
+    solve = lambda h, g: torch.linalg.solve_ex(h, g)[0]  # noqa: E731
+    record("solve_ex 6x6 (one at a time)", solve(H6, g6), torch.cat([solve(h[None], v[None]) for h, v in zip(H6, g6)]))
+
+    # The pose search, stage by stage: every pair at once against each alone.
+    from sfm_danpipeline_torch.ops import homography as Hm
+    from sfm_danpipeline_torch.ops.triangulation import pose_matrix, triangulate_dlt
+
+    px1 = kp.xy[pi.long()[:, None], m.idx_a.long()]
+    px2 = kp.xy[pj.long()[:, None], m.idx_b.long()]
+    idx4 = idx[..., :4]
+    h_all = Hm._homography_from_four(gather_rows(px1, idx4), gather_rows(px2, idx4))
+    tri_P2 = pose_matrix(torch.eye(3, device=device), torch.tensor([1.0, 0.0, 0.0], device=device))
+    tri_P1 = pose_matrix(torch.eye(3, device=device), torch.zeros(3, device=device))
+    tri_all = triangulate_dlt(tri_P1, tri_P2, x1, x2)
+    models = E._fit_essential_dlt(gather_rows(x1, idx), gather_rows(x2, idx), torch.ones(idx.shape, device=device))
+    s_all = E._pose_search(x1, x2, valid, rn2, idx)
+    for p in range(len(pi)):
+        sl = slice(p, p + 1)
+        mp = E._fit_essential_dlt(gather_rows(x1[sl], idx[sl]), gather_rows(x2[sl], idx[sl]), torch.ones(idx[sl].shape, device=device))
+        record("8-point fits", models[sl], mp)
+        record("4-point homographies", h_all[sl], Hm._homography_from_four(gather_rows(px1[sl], idx4[sl]), gather_rows(px2[sl], idx4[sl])))
+        record("triangulate_dlt", tri_all[sl], triangulate_dlt(tri_P1, tri_P2, x1[sl], x2[sl]))
+        s1 = E._pose_search(x1[sl], x2[sl], valid[sl], rn2, idx[sl])
+        for k in ("scores", "R0", "t0", "R", "t"):
+            record(f"pose search {k}", s_all[k][sl], s1[k])
+        for k in ("band0", "band"):
+            out[f"pose search {k} entries differing"] = out.get(f"pose search {k} entries differing", 0) + int(
+                (s_all[k][sl] != s1[k]).sum()
+            )
+        out["pose search top-8 differing pairs"] = out.get("pose search top-8 differing pairs", 0) + int(
+            not torch.equal(
+                torch.sort(-s_all["scores"][sl], stable=True).indices[..., :8],
+                torch.sort(-s1["scores"], stable=True).indices[..., :8],
+            )
+        )
+    print(json.dumps({"pair_batch_audit": {"device": str(device), "pairs": len(pi), **out}}, indent=1))
+    return 0
+
+
 def determinism_audit():
     from sfm_danpipeline_torch import cli
     from sfm_danpipeline_torch.pipeline.sfm import SfMPipeline
@@ -150,7 +410,7 @@ def determinism_audit():
     return 1 if stopped else 0
 
 
-def flow_seeds(seeds):
+def flow_seeds(seeds, device):
     from sfm_danpipeline_torch.pipeline.sfm import SfMPipeline
 
     scene = _scene(0.05)
@@ -159,7 +419,7 @@ def flow_seeds(seeds):
     for seed in seeds:
         cfg = dataclasses.replace(base, geometry=dataclasses.replace(base.geometry, seed=seed))
         try:
-            res = SfMPipeline(cfg, device="cuda").run(scene.images, scene.intrinsics)
+            res = SfMPipeline(cfg, device=device).run(scene.images, scene.intrinsics)
         except RuntimeError as e:
             print(f"flow seed {seed}: failed: {e}")
             continue
@@ -182,22 +442,41 @@ def flow_seeds(seeds):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=["time-stages", "determinism-audit", "flow-seeds"])
+    ap.add_argument(
+        "mode",
+        choices=[
+            "time-stages", "time-baseline", "profile", "cli-akaze", "pair-batch-audit",
+            "determinism-audit", "flow-seeds",
+        ],
+    )
+    ap.add_argument("--out", default="out/akaze10", help="cli-akaze's output directory")
+    ap.add_argument("--device", default="cuda", help="flow-seeds' device (cpu to compare commits on a CPU)")
     ap.add_argument("--root", default=HERE, help="checkout whose sfm_danpipeline_torch is run")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3, 4, 5])
+    ap.add_argument("--scenes", nargs="+", choices=list(BASELINE_SCENES), default=["v10", "v20"])
+    ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args()
-    if not torch.cuda.is_available():
+    on_cpu = args.mode == "flow-seeds" and args.device == "cpu"
+    if not on_cpu and not torch.cuda.is_available():
         raise SystemExit("torch_stage_probe: no CUDA device")
     sys.path.insert(0, os.path.abspath(args.root))
-    print(subprocess.run(
+    print("cpu" if on_cpu else subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0])
     if args.mode == "time-stages":
         return time_stages()
+    if args.mode == "time-baseline":
+        return time_baseline(args.scenes, args.repeats)
+    if args.mode == "profile":
+        return profile_runs(args.scenes)
+    if args.mode == "cli-akaze":
+        return cli_akaze(args.out)
+    if args.mode == "pair-batch-audit":
+        return pair_batch_audit()
     if args.mode == "determinism-audit":
         return determinism_audit()
-    return flow_seeds(args.seeds)
+    return flow_seeds(args.seeds, "cpu" if on_cpu else "cuda")
 
 
 if __name__ == "__main__":
