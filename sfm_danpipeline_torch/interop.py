@@ -5,7 +5,8 @@ the intermediate state. `*_from_numpy` builds the port's dataclasses from
 numpy arrays (what `np.asarray` gives of the reference's `Keypoints`,
 `PairMatches`, `ReconstructionState`, `BAProblem`, `PairScores` and
 `Sim3` fields); `*_to_numpy` goes back. Each stage can then be run alone on
-the other package's input.
+the other package's input. `key_from_numpy` takes a reference key's data
+(`jax.random.key_data`), so that both packages draw from one key.
 """
 from __future__ import annotations
 
@@ -86,6 +87,15 @@ def problem_from_numpy(prob, device="cpu") -> BAProblem:
 def scores_from_numpy(sc, device="cpu") -> PairScores:
     """`sc`: an object or dict with the PairScores fields."""
     return _from_numpy(PairScores, sc, device)
+
+
+def key_from_numpy(key_data, device="cpu") -> torch.Tensor:
+    """A reference key's data, uint32 (..., 2), as the port's key: the same
+    words in an int64 tensor (..., 2) (ops/prng.py)."""
+    a = np.asarray(key_data)
+    if a.dtype != np.uint32 or a.shape[-1:] != (2,):
+        raise TypeError(f"a key's data is uint32 (..., 2), got {a.dtype} {a.shape}")
+    return torch.tensor(a.astype(np.int64), device=device)
 
 
 def sim3_from_numpy(sim, device="cpu") -> Sim3:

@@ -270,15 +270,16 @@ def _finish(R, t, band, front, min_points) -> RelativePose:
     )
 
 
-def _as_batch(x1, x2, valid, samples):
+def _as_batch(key, x1, x2, valid, samples):
     """One pair's (M, ...) inputs as a batch of one; a batch as it is."""
     if valid.dim() == 2:
-        return x1, x2, valid, samples, False
-    return x1[None], x2[None], valid[None], None if samples is None else samples[None], True
+        return key, x1, x2, valid, samples, False
+    one = lambda a: None if a is None else a[None]  # noqa: E731
+    return one(key), x1[None], x2[None], valid[None], one(samples), True
 
 
 def estimate_relative_pose(
-    gen: Optional[torch.Generator],
+    key: Optional[torch.Tensor],
     x1: torch.Tensor,
     x2: torch.Tensor,
     valid: torch.Tensor,
@@ -289,19 +290,20 @@ def estimate_relative_pose(
     samples: Optional[torch.Tensor] = None,
 ) -> RelativePose:
     """Two-view pose: RANSAC essential + polish + cheirality recoverPose.
-    x1, x2: (M, 2) normalized coords and valid (M,) for one pair, or (P, M,
-    2) and (P, M) for P pairs at once; `samples` injects the (H, 8) or (P,
-    H, 8) draws. A batch's fields gain the leading P."""
-    x1, x2, valid, samples, single = _as_batch(x1, x2, valid, samples)
+    x1, x2: (M, 2) normalized coords, valid (M,) and key (2,) for one pair,
+    or (P, M, 2), (P, M) and (P, 2) for P pairs at once; `samples` injects
+    the (H, 8) or (P, H, 8) draws in place of the key's. A batch's fields
+    gain the leading P."""
+    key, x1, x2, valid, samples, single = _as_batch(key, x1, x2, valid, samples)
     refit_n2 = (2.5 * threshold_px / focal) ** 2
-    idx = samples if samples is not None else sample_indices(gen, valid, n_hypotheses, 8)
+    idx = samples if samples is not None else sample_indices(key, valid, n_hypotheses, 8)
     s = _pose_search(x1, x2, valid, refit_n2, idx)
     pose = _finish(s["R"], s["t"], s["band"], s["front"], min_points)
     return RelativePose(*(f[0] for f in pose)) if single else pose
 
 
 def estimate_relative_pose_basins(
-    gen: Optional[torch.Generator],
+    key: Optional[torch.Tensor],
     x1: torch.Tensor,
     x2: torch.Tensor,
     valid: torch.Tensor,
@@ -317,9 +319,9 @@ def estimate_relative_pose_basins(
     rotation lies > ~2 deg away (the unpolished winner if the polish jumped
     basins, else the best-MSAC alternative of the pool, polished with a
     basin guard). Third-view registration disambiguates."""
-    x1, x2, valid, samples, single = _as_batch(x1, x2, valid, samples)
+    key, x1, x2, valid, samples, single = _as_batch(key, x1, x2, valid, samples)
     refit_n2 = (2.5 * threshold_px / focal) ** 2
-    idx = samples if samples is not None else sample_indices(gen, valid, n_hypotheses, 8)
+    idx = samples if samples is not None else sample_indices(key, valid, n_hypotheses, 8)
     s = _pose_search(x1, x2, valid, refit_n2, idx)
     R_a, t_a = s["R"], s["t"]
     models, scores, res = s["models"], s["scores"], s["res"]

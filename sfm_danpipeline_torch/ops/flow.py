@@ -131,15 +131,19 @@ def flow_match_pair(
     optional leading pair dimension. `lowe` is all zeros, so `at_ratio`
     keeps every flow match."""
     pts1, ok = lk_track(img0, img1, xy0, valid0)
-    d2 = (
-        torch.sum(pts1 * pts1, dim=-1)[..., :, None]
-        + torch.sum(xy1 * xy1, dim=-1)[..., None, :]
-        - 2.0 * pts1 @ xy1.transpose(-1, -2)
-    )
+    # Squared distances from the coordinate differences. The reference's
+    # |a|^2+|b|^2-2ab form cancels to ~0.03 px^2 in float32 at these pixel
+    # coordinates (half the slots of an adjacent pair tie at 0); the slots
+    # are ordered by this distance and a RANSAC draw picks a slot, so an
+    # order set by rounding would give one draw other matches on the card
+    # than on the CPU. Each product and sum is its own op, rounded alike on
+    # both devices.
+    dx = pts1[..., :, None, 0] - xy1[..., None, :, 0]
+    dy = pts1[..., :, None, 1] - xy1[..., None, :, 1]
+    d2 = dx * dx + dy * dy
     d2 = torch.where(valid1[..., None, :], d2, torch.full_like(d2, _INF))
-    best = torch.argmin(d2, dim=-1)  # the first of equal minima
-    mind2 = torch.gather(d2, -1, best[..., None])[..., 0]
-    bestd = torch.sqrt(torch.clamp(mind2, min=0.0))
+    mind2, best = torch.min(d2, dim=-1)  # the first of equal minima
+    bestd = torch.sqrt(mind2)
     keep = ok & (bestd <= radius)
     score = torch.where(keep, -bestd, torch.full_like(bestd, -_INF))
     k = min(max_matches, score.shape[-1])

@@ -117,7 +117,7 @@ def _homography_refit(x1, x2, w):
 
 
 def homography_ransac(
-    gen: Optional[torch.Generator],
+    key: Optional[torch.Tensor],
     x1: torch.Tensor,
     x2: torch.Tensor,
     valid: torch.Tensor,
@@ -127,10 +127,11 @@ def homography_ransac(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """RANSAC homography + weighted refit on the inliers. Returns (H,
     inlier_mask, n_inliers); threshold is the pixel transfer error. x1, x2
-    (M, 2) and valid (M,) for one problem, or (P, M, 2) and (P, M) for P at
-    once (`samples` (H, 4) or (P, H, 4)); a batch's outputs gain the P."""
+    (M, 2), valid (M,) and key (2,) for one problem, or (P, M, 2), (P, M)
+    and (P, 2) for P at once (`samples` (H, 4) or (P, H, 4) in place of the
+    key's draws); a batch's outputs gain the P."""
     H, inliers, _ = ransac(
-        gen,
+        key,
         lambda idx: _homography_from_four(gather_rows(x1, idx), gather_rows(x2, idx)),
         lambda Hs: transfer_error(Hs, x1[..., None, :, :], x2[..., None, :, :]),
         valid, n_hypotheses, 4, threshold, samples=samples,

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd
 
+from sfm_danpipeline_torch.ops import prng
 from sfm_danpipeline_torch.ops.lie import exp_so3, log_so3, rotate_point
 from sfm_danpipeline_torch.ops.ransac import sample_indices
 from sfm_danpipeline_torch.ops.select import top_k_indices
@@ -168,28 +169,30 @@ def _gauss_newton_refine(R, t, X, px, K, w, iters: int = 8):
 
 
 def pnp_sample_draws(
-    gen: Optional[torch.Generator],
+    key: torch.Tensor,
     valid: torch.Tensor,
     n_hypotheses: int,
     sample_size: int,
     sample_mask: Optional[torch.Tensor],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The (DLT, P3P) index draws of `solve_pnp_ransac`: a quarter budget
-    (at least 256) of `sample_size`-point DLT draws; P3P draws over the
-    valid rows, half of them from the strict `sample_mask` subset when it
-    holds >= 8 rows."""
-    idx6 = sample_indices(gen, valid, max(256, n_hypotheses // 4), sample_size)
+    """The (DLT, P3P) index draws of `solve_pnp_ransac`, from the key
+    split three ways (DLT, P3P, strict P3P) as the reference splits it: a
+    quarter budget (at least 256) of `sample_size`-point DLT draws; P3P
+    draws over the valid rows, half of them from the strict `sample_mask`
+    subset when it holds >= 8 rows."""
+    k_dlt, k_p3p, k_p3s = prng.split(key, 3).unbind(-2)
+    idx6 = sample_indices(k_dlt, valid, max(256, n_hypotheses // 4), sample_size)
     if sample_mask is None:
-        return idx6, sample_indices(gen, valid, n_hypotheses, 3)
+        return idx6, sample_indices(k_p3p, valid, n_hypotheses, 3)
     strict = sample_mask & valid
     mask_eff = torch.where(torch.sum(strict) >= 8, strict, valid)
-    idx3a = sample_indices(gen, valid, n_hypotheses // 2, 3)
-    idx3b = sample_indices(gen, mask_eff, n_hypotheses // 2, 3)
+    idx3a = sample_indices(k_p3p, valid, n_hypotheses // 2, 3)
+    idx3b = sample_indices(k_p3s, mask_eff, n_hypotheses // 2, 3)
     return idx6, torch.cat([idx3a, idx3b])
 
 
 def solve_pnp_ransac(
-    gen: Optional[torch.Generator],
+    key: Optional[torch.Tensor],
     X: torch.Tensor,
     px: torch.Tensor,
     xn: torch.Tensor,
@@ -207,7 +210,7 @@ def solve_pnp_ransac(
     (M,2) pixels, xn (M,2) normalized obs, valid (M,). `samples` injects
     the (DLT, P3P) draws of `pnp_sample_draws`."""
     idx6, idx3 = samples if samples is not None else pnp_sample_draws(
-        gen, valid, n_hypotheses, sample_size, sample_mask
+        key, valid, n_hypotheses, sample_size, sample_mask
     )
     models6 = _dlt_pnp(X[idx6], xn[idx6])
     h = torch.cat([xn, torch.ones_like(xn[:, :1])], dim=-1)

@@ -6,11 +6,11 @@ selected by MSAC (sum of truncated residuals). Every block takes optional
 leading batch dims (a pair axis), so that many independent problems run as
 one computation; one problem is the case with no leading dims.
 
-RNG: the port cannot reproduce JAX's threefry keys. Draws come from an
-explicit `torch.Generator` (seeded by the pipeline from
-config.geometry.seed), and every estimator takes an optional `samples`
-argument holding injected (..., n_hypotheses, sample_size) index draws, so
-parity tests feed both implementations the same samples.
+Draws: every estimator takes a key of the reference's threefry tree
+(ops/prng.py), one per problem along the leading dims, and draws the same
+indices as the reference's `sample_indices` does from that key, on the CPU
+and on a card alike. Every estimator also takes an optional `samples`
+argument holding injected (..., n_hypotheses, sample_size) index draws.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from sfm_danpipeline_torch.ops import prng
 from sfm_danpipeline_torch.ops.reduce import fixed_sum
 
 # cuSOLVER's batched eigh refused 65,536 matrices on the H100, so batched
@@ -26,21 +27,32 @@ LINALG_BATCH = 8192
 
 
 def sample_indices(
-    gen: Optional[torch.Generator],
+    key: torch.Tensor,
     valid: torch.Tensor,
     n_hypotheses: int,
     sample_size: int,
 ) -> torch.Tensor:
     """Draw (..., n_hypotheses, sample_size) indices of valid entries,
-    uniformly with replacement across draws. valid: (..., M) mask; every
-    problem of the batch draws from its own valid set, all in one call."""
+    uniformly with replacement across draws, as the reference does from the
+    same key: `randint` over the valid count, read through the valid rows
+    in their stable order. valid: (..., M) mask and key (..., 2), one key
+    per problem; every problem draws from its own valid set, all in one
+    call. The random words are hashed on the key's device and folded on
+    valid's."""
     lead = valid.shape[:-1]
+    if tuple(key.shape) != tuple(lead) + (2,):
+        raise ValueError(f"{tuple(lead)} problems need keys {tuple(lead) + (2,)}, got {tuple(key.shape)}")
+    if valid.shape[-1] >= 2**31:
+        raise ValueError("sample_indices draws from at most 2**31 - 1 rows")
     count = torch.clamp(torch.sum(valid.to(torch.int64), dim=-1), min=1)
     count = count.reshape(lead + (1, 1))
     # Valid indices first, in their original (stable) order.
     order = torch.argsort((~valid).to(torch.int8), dim=-1, stable=True)
-    u = torch.rand(lead + (n_hypotheses, sample_size), generator=gen, device=valid.device)
-    r = torch.minimum((u * count).long(), count - 1)
+    bits = prng.randint_bits(key, (n_hypotheses, sample_size))
+    if bits.device != valid.device:
+        bits = bits.pin_memory() if valid.device.type == "cuda" else bits
+        bits = bits.to(valid.device, non_blocking=True)
+    r = prng.fold_bits(bits[..., 0, :, :], bits[..., 1, :, :], count)
     return gather_rows(order[..., None], r)[..., 0]
 
 
@@ -92,7 +104,7 @@ def pair_slices(n_pairs: int, n_hypotheses: int, n_slots: int, device) -> list:
 
 
 def ransac(
-    gen: Optional[torch.Generator],
+    key: Optional[torch.Tensor],
     fit: Callable[[torch.Tensor], torch.Tensor],
     residuals: Callable[[torch.Tensor], torch.Tensor],
     valid: torch.Tensor,
@@ -103,7 +115,7 @@ def ransac(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fixed-budget MSAC over a batch of problems.
 
-    valid: (..., M). fit(idx (..., H, s)) -> models (..., H, ...);
+    valid: (..., M), key (..., 2) (None with injected `samples`). fit(idx (..., H, s)) -> models (..., H, ...);
     residuals(models) -> (..., H, M) nonnegative residuals. Returns
     (best_model (..., ...), inlier_mask (..., M), inlier_count (...)) with
     inliers = residual < threshold among valid entries; ties keep the lower
@@ -111,7 +123,7 @@ def ransac(
     """
     idx = (
         samples if samples is not None
-        else sample_indices(gen, valid, n_hypotheses, sample_size)
+        else sample_indices(key, valid, n_hypotheses, sample_size)
     )
     models = fit(idx)
     res = residuals(models)

@@ -19,7 +19,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from sfm_danpipeline_torch.ops.lie import exp_so3
-from sfm_danpipeline_torch.ops.ransac import ransac
+from sfm_danpipeline_torch.ops.ransac import ransac, sample_indices
 
 
 class Sim3(NamedTuple):
@@ -80,7 +80,7 @@ def _unpack(model: torch.Tensor):
 
 
 def _sim3_ransac(
-    gen: Optional[torch.Generator],
+    key: Optional[torch.Tensor],
     X: torch.Tensor,
     Y: torch.Tensor,
     valid: torch.Tensor,
@@ -91,7 +91,9 @@ def _sim3_ransac(
     samples: Optional[torch.Tensor],
 ) -> Sim3Result:
     """Shared body: 3-point Umeyama MSAC on the valid rows, two refits.
-    residuals_fn(rows, R (H, 3, 3), t (H, 3), s (H,)) -> (H, |rows|)."""
+    residuals_fn(rows, R (H, 3, 3), t (H, 3), s (H,)) -> (H, |rows|). The
+    draws are the reference's from `key` over the whole table (or the
+    injected `samples`), read as positions among the valid rows."""
     rows = torch.nonzero(valid, as_tuple=True)[0]
     if rows.numel() == 0:
         eye = torch.eye(3, dtype=X.dtype, device=X.device)
@@ -102,9 +104,10 @@ def _sim3_ransac(
             inliers=no, n_inliers=torch.sum(no), ok=torch.tensor(False, device=X.device),
         )
     Xv, Yv = X[rows], Y[rows]
-    if samples is not None:
-        # Full-table draws -> positions among the valid rows.
-        samples = (torch.cumsum(valid.to(torch.int64), 0) - 1)[samples.long()]
+    if samples is None:
+        samples = sample_indices(key, valid, n_hypotheses, 3)
+    # Full-table draws -> positions among the valid rows.
+    samples = (torch.cumsum(valid.to(torch.int64), 0) - 1)[samples.long()]
 
     def fit(idx):
         return _pack(umeyama(Xv[idx], Yv[idx]))
@@ -115,7 +118,7 @@ def _sim3_ransac(
 
     all_valid = torch.ones_like(rows, dtype=torch.bool)
     _, inl_v, _ = ransac(
-        gen, fit, residuals, all_valid, n_hypotheses, 3, threshold, samples=samples
+        None, fit, residuals, all_valid, n_hypotheses, 3, threshold, samples=samples
     )
     for _ in range(2):
         sim = umeyama(Xv, Yv, inl_v.to(X.dtype))
@@ -131,7 +134,7 @@ def _sim3_ransac(
 
 
 def estimate_sim3_reproj_ransac(
-    gen: Optional[torch.Generator],
+    key: Optional[torch.Tensor],
     X: torch.Tensor,  # (M, 3) source points (component B frame)
     Y: torch.Tensor,  # (M, 3) target points (component A frame)
     cams: torch.Tensor,  # (M, 6) per-pair A-frame camera (angle-axis + t)
@@ -163,12 +166,12 @@ def estimate_sim3_reproj_ransac(
         return torch.where(torch.isfinite(r), r, torch.full_like(r, 1e9))
 
     return _sim3_ransac(
-        gen, X, Y, valid, reproj_err, threshold_px, n_hypotheses, min_inliers, samples
+        key, X, Y, valid, reproj_err, threshold_px, n_hypotheses, min_inliers, samples
     )
 
 
 def estimate_sim3_ransac(
-    gen: Optional[torch.Generator],
+    key: Optional[torch.Tensor],
     X: torch.Tensor,  # (M, 3) source points
     Y: torch.Tensor,  # (M, 3) target points
     valid: torch.Tensor,  # (M,)
@@ -186,5 +189,5 @@ def estimate_sim3_ransac(
         return torch.where(torch.isfinite(r), r, torch.full_like(r, 1e9))
 
     return _sim3_ransac(
-        gen, X, Y, valid, dist3, threshold, n_hypotheses, min_inliers, samples
+        key, X, Y, valid, dist3, threshold, n_hypotheses, min_inliers, samples
     )

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from sfm_danpipeline_torch.config import PipelineConfig
+from sfm_danpipeline_torch.ops import prng
 from sfm_danpipeline_torch.ops.epipolar import estimate_relative_pose_basins
 from sfm_danpipeline_torch.ops.homography import homography_ransac
 from sfm_danpipeline_torch.ops.lie import log_so3
@@ -37,7 +38,7 @@ class PairScores(NamedTuple):
 
 
 def score_pair(
-    gen: Optional[torch.Generator],
+    key: Optional[torch.Tensor],
     m: PairMatches,
     pa: torch.Tensor,
     pb: torch.Tensor,
@@ -49,19 +50,24 @@ def score_pair(
 ):
     """Score one pair, or a batch of pairs along a leading axis of `m`,
     `pa` and `pb`: both basin-diverse relative poses, the homography
-    degeneracy check (H/E inlier ratio gate), and usability. `samples`
-    injects the (essential (..., H, 8), homography (..., H, 4)) draws."""
+    degeneracy check (H/E inlier ratio gate), and usability. The key (one
+    per pair, (..., 2)) splits into the essential and the homography key,
+    as the reference's does; `samples` injects the (essential (..., H, 8),
+    homography (..., H, 4)) draws in place of the keys'."""
     x1 = undistort_points(pa, K, dist)
     x2 = undistort_points(pb, K, dist)
     g = config.geometry
+    k_e = k_h = None
+    if samples is None:
+        k_e, k_h = prng.split(key, 2).unbind(-2)
     basins = estimate_relative_pose_basins(
-        gen, x1, x2, m.valid, focal=K[0, 0], threshold_px=g.essential_threshold_px,
+        k_e, x1, x2, m.valid, focal=K[0, 0], threshold_px=g.essential_threshold_px,
         n_hypotheses=g.essential_ransac_iters,
         samples=None if samples is None else samples[0],
     )
     n_pose = basins.n_inliers[..., 0]
     _, _, n_h = homography_ransac(
-        gen, pa, pb, m.valid, threshold=g.homography_threshold_factor * image_max_dim,
+        k_h, pa, pb, m.valid, threshold=g.homography_threshold_factor * image_max_dim,
         n_hypotheses=g.homography_ransac_iters,
         samples=None if samples is None else samples[1],
     )
@@ -74,7 +80,7 @@ def score_pair(
 
 
 def score_pairs(
-    gen: Optional[torch.Generator],
+    key: Optional[torch.Tensor],
     matches: PairMatches,
     keypoints_xy: torch.Tensor,
     pair_i,
@@ -85,9 +91,11 @@ def score_pairs(
     config: PipelineConfig,
     samples: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> PairScores:
-    """Score all pairs by pose-inlier ratio in one batched call. Every
-    pair's essential draws are taken first, then every pair's homography
-    draws (`samples` injects both, (NP, H, 8) and (NP, H, 4))."""
+    """Score all pairs by pose-inlier ratio in one batched call. The key
+    splits into one key per pair and each pair's into its essential and
+    homography keys, as the reference's `score_pairs` splits it; every
+    pair's draws are taken at once on the key's device (`samples` injects
+    both, (NP, H, 8) and (NP, H, 4))."""
     g = config.geometry
     dev = keypoints_xy.device
     pi = torch.as_tensor(pair_i, dtype=torch.long, device=dev)
@@ -95,9 +103,10 @@ def score_pairs(
     pa = keypoints_xy[pi[:, None], matches.idx_a.long()]
     pb = keypoints_xy[pj[:, None], matches.idx_b.long()]
     if samples is None:
+        k_e, k_h = prng.split(prng.split(key, pi.shape[0]), 2).unbind(-2)
         samples = (
-            sample_indices(gen, matches.valid, g.essential_ransac_iters, 8),
-            sample_indices(gen, matches.valid, g.homography_ransac_iters, 4),
+            sample_indices(k_e, matches.valid, g.essential_ransac_iters, 8),
+            sample_indices(k_h, matches.valid, g.homography_ransac_iters, 4),
         )
     outs = [
         score_pair(
@@ -127,7 +136,7 @@ def best_pair(scores: PairScores) -> torch.Tensor:
 
 
 def bootstrap_pair(
-    gen: Optional[torch.Generator],
+    key: Optional[torch.Tensor],
     state: ReconstructionState,
     matches: PairMatches,
     keypoints_xy: torch.Tensor,
@@ -152,7 +161,7 @@ def bootstrap_pair(
     x1 = undistort_points(pa, K, dist)
     x2 = undistort_points(pb, K, dist)
     pose = estimate_relative_pose_basins(
-        gen, x1, x2, matches.valid, focal=K[0, 0],
+        key, x1, x2, matches.valid, focal=K[0, 0],
         threshold_px=g.essential_threshold_px, n_hypotheses=g.essential_ransac_iters,
         samples=samples,
     ).basin(basin)

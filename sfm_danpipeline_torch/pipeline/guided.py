@@ -33,7 +33,7 @@ off for the package).
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -129,7 +129,7 @@ def _anchored_scales(
 
 
 def guided_bridge_register(
-    gen,
+    key: Optional[torch.Tensor],
     state: ReconstructionState,
     new_view: int,
     done_views: Sequence[int],
@@ -264,7 +264,7 @@ def guided_bridge_register(
     if callable(samples):
         samples = samples(keep1)
     res = solve_pnp_ransac(
-        gen, X[pid1], kp_xy, undistort_points(kp_xy, K_mat, dist), keep1, K_mat,
+        key, X[pid1], kp_xy, undistort_points(kp_xy, K_mat, dist), keep1, K_mat,
         threshold_px=thr, n_hypotheses=g.pnp_ransac_iters, max_translation=g.pnp_max_translation,
         min_inliers=g.pnp_min_inliers, sample_mask=keep1, samples=samples,
     )

@@ -16,6 +16,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from sfm_danpipeline_torch.config import PipelineConfig
+from sfm_danpipeline_torch.ops import prng
 from sfm_danpipeline_torch.ops.epipolar import estimate_relative_pose
 from sfm_danpipeline_torch.ops.lie import exp_so3, log_so3
 from sfm_danpipeline_torch.ops.matching import PairMatches
@@ -32,7 +33,7 @@ from sfm_danpipeline_torch.pipeline.tracks import (
 
 
 def epipolar_filter_matches(
-    gen: Optional[torch.Generator],
+    key: Optional[torch.Tensor],
     pn: torch.Tensor,
     pd: torch.Tensor,
     valid: torch.Tensor,
@@ -48,7 +49,7 @@ def epipolar_filter_matches(
     P3P draws handle the low inlier rates of wide-baseline bridges)."""
     g = config.geometry
     pose = estimate_relative_pose(
-        gen, undistort_points(pn, K, dist), undistort_points(pd, K, dist), valid,
+        key, undistort_points(pn, K, dist), undistort_points(pd, K, dist), valid,
         focal=K[0, 0], threshold_px=g.essential_threshold_px,
         n_hypotheses=g.prefilter_ransac_iters, samples=samples,
     )
@@ -58,7 +59,7 @@ def epipolar_filter_matches(
 
 
 def epipolar_prefilter_table(
-    gen: Optional[torch.Generator],
+    key: Optional[torch.Tensor],
     idx_a: torch.Tensor,
     idx_b: torch.Tensor,
     valid: torch.Tensor,
@@ -71,9 +72,11 @@ def epipolar_prefilter_table(
     n_views: int,
     samples: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Epipolar consensus of every pair's loose matches in one batched call
-    (`samples` injects the (P, H, 8) draws), scattered into the oriented
-    (V, V, M) validity table registration reads."""
+    """Epipolar consensus of every pair's loose matches in one batched call,
+    scattered into the oriented (V, V, M) validity table registration reads.
+    The key splits into one key per pair, as the reference's does (its
+    padding to 64-pair chunks leaves these keys as they are: a split is
+    prefix-stable); `samples` injects the (P, H, 8) draws."""
     g = config.geometry
     dev = valid.device
     pi = torch.as_tensor(pair_i, dtype=torch.long, device=dev)
@@ -81,7 +84,7 @@ def epipolar_prefilter_table(
     pn = keypoints_xy[pi[:, None], idx_a.long()]
     pd = keypoints_xy[pj[:, None], idx_b.long()]
     if samples is None:
-        samples = sample_indices(gen, valid, g.prefilter_ransac_iters, 8)
+        samples = sample_indices(prng.split(key, pi.shape[0]), valid, g.prefilter_ransac_iters, 8)
     filt = torch.cat([
         epipolar_filter_matches(None, pn[c], pd[c], valid[c], K, dist, config, samples=samples[c])
         for c in pair_slices(pi.shape[0], g.prefilter_ransac_iters, valid.shape[1], dev)
@@ -114,7 +117,7 @@ def build_match_tables(
 
 
 def register_view(
-    gen: Optional[torch.Generator],
+    key: Optional[torch.Tensor],
     state: ReconstructionState,
     new_view: int,
     done_views: Sequence[int],
@@ -161,7 +164,7 @@ def register_view(
     xn = undistort_points(px, K, dist)
     g = config.geometry
     res = solve_pnp_ransac(
-        gen, X, px, xn, keep, K,
+        key, X, px, xn, keep, K,
         threshold_px=g.pnp_threshold_factor * image_max_dim,
         n_hypotheses=g.pnp_ransac_iters, max_translation=g.pnp_max_translation,
         min_inliers=g.pnp_min_inliers, sample_mask=keep & strict_s,
@@ -233,7 +236,7 @@ def triangulate_new_view_all(
 
 
 def register_and_triangulate(
-    gen: Optional[torch.Generator],
+    key: Optional[torch.Tensor],
     state: ReconstructionState,
     new_view: int,
     done_views: Sequence[int],
@@ -252,7 +255,7 @@ def register_and_triangulate(
     done view (strict table). Returns (state, (ok, n_inliers, n_support,
     n_points, n_obs)) as host ints."""
     state, ok, n_inl, n_support = register_view(
-        gen, state, new_view, done_views, feat_tab_a, feat_tab_b, valid_tab_loose,
+        key, state, new_view, done_views, feat_tab_a, feat_tab_b, valid_tab_loose,
         keypoints_xy, K, dist, image_max_dim, config, valid_tab_strict=valid_tab_strict,
     )
     ok = bool(ok)

@@ -224,7 +224,7 @@ def _sim3_cameras(cameras: torch.Tensor, sim: Sim3) -> torch.Tensor:
 
 
 def block_realign(
-    gen: Optional[torch.Generator],
+    key: Optional[torch.Tensor],
     state: ReconstructionState,
     b_mask: torch.Tensor,  # (V,) the guided-rooted view block
     feat_tab_a: torch.Tensor,  # (V, V, M) oriented match tables
@@ -251,7 +251,7 @@ def block_realign(
          every cross track triangulated twice, from its A observations and
          from its B observations alone;
       2. reprojection-scored Sim(3) RANSAC finds the block's rigid
-         correction (`n_hypotheses` draws from `gen`; or `samples`, the
+         correction (`n_hypotheses` draws from `key`; or `samples`, the
          (n_hypotheses, 3) draws indexing the candidate table, or a function
          of the table's validity mask that returns them);
       3. when it succeeds: B's cameras and B-pure points move, the inlier
@@ -304,7 +304,7 @@ def block_realign(
     if callable(samples):
         samples = samples(m_all)
     simres = estimate_sim3_reproj_ransac(
-        gen,
+        key,
         torch.cat([state.points_xyz[pid_b], X_Bd[c_order]]),
         torch.cat([state.points_xyz[pid_a], X_Ad[c_order]]),
         torch.cat([state.cameras[view_a], state.cameras[va_c[c_order]]]),

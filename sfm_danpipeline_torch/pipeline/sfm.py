@@ -22,6 +22,14 @@ keypoints and matches (the multi-process driver, parallel/distributed.py).
 The reference's fixed-capacity buckets and fused-dispatch packaging are
 TPU workarounds and are not ported: BA works on the exact observation
 table, and each step runs as eager torch ops.
+
+RANSAC draws come from the reference's threefry key tree (ops/prng.py),
+split and consumed at the same places under the same conditions, so one
+seed gives the reference's samples on the CPU and on a card: the root key
+splits into a scoring and a registration key, the prefilter takes the
+root folded with 0x9E1F, and every seed attempt, registration, guided
+attempt, merge and block realign takes the next of V*32 registration keys
+(`_next_key`).
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from sfm_danpipeline_torch.ba.solver import run_ba
 from sfm_danpipeline_torch.config import PipelineConfig
 from sfm_danpipeline_torch.io.calibration import Intrinsics
 from sfm_danpipeline_torch.io.images import ImageBatch
+from sfm_danpipeline_torch.ops import prng
 from sfm_danpipeline_torch.ops.akaze import detect_and_compute_akaze_batch
 from sfm_danpipeline_torch.ops.flow import flow_match_all_pairs
 from sfm_danpipeline_torch.ops.interp import bilinear_sample
@@ -153,29 +162,30 @@ def ba_step(
 
 
 def score_and_prefilter(
-    gen, strict, loose, keypoints_xy, pair_i, pair_j, K, dist, image_max_dim,
-    config: PipelineConfig, n_views: int,
+    k_score, k_pref, strict, loose, keypoints_xy, pair_i, pair_j, K, dist,
+    image_max_dim, config: PipelineConfig, n_views: int,
 ):
     """Pair scoring on the strict matches and the all-pairs epipolar
-    prefilter of the loose ones (both read the fresh match tables)."""
+    prefilter of the loose ones (both read the fresh match tables), each
+    from its own key."""
     scores = score_pairs(
-        gen, strict, keypoints_xy, pair_i, pair_j, K, dist, image_max_dim, config
+        k_score, strict, keypoints_xy, pair_i, pair_j, K, dist, image_max_dim, config
     )
     vt_loose = epipolar_prefilter_table(
-        gen, loose.idx_a, loose.idx_b, loose.valid, keypoints_xy, pair_i, pair_j,
+        k_pref, loose.idx_a, loose.idx_b, loose.valid, keypoints_xy, pair_i, pair_j,
         K, dist, config, n_views,
     )
     return scores, vt_loose
 
 
 def bootstrap_adjust_step(
-    gen, state, matches_one, keypoints_xy, colors, view_i: int, view_j: int,
+    key, state, matches_one, keypoints_xy, colors, view_i: int, view_j: int,
     pp, K, dist, fix_cam, basin: int, config: PipelineConfig,
 ):
     """Two-view bootstrap, then the first intermediate BA when the pose and
     angle gates accept. Returns (state, ok, med_angle_deg)."""
     state, ok, med_ang = bootstrap_pair(
-        gen, state, matches_one, keypoints_xy, colors, view_i, view_j, K, dist,
+        key, state, matches_one, keypoints_xy, colors, view_i, view_j, K, dist,
         config, basin,
     )
     if bool(ok):
@@ -186,7 +196,7 @@ def bootstrap_adjust_step(
 
 
 def register_adjust_step(
-    gen, state, new_view: int, done_views, tables, keypoints_xy, colors, pp, K,
+    key, state, new_view: int, done_views, tables, keypoints_xy, colors, pp, K,
     dist, image_max_dim: float, config: PipelineConfig, fix_cam,
     local_view: Optional[int], run_ba: bool = True,
 ):
@@ -195,7 +205,7 @@ def register_adjust_step(
     (ok, n_inliers, n_support, n_points, n_obs))."""
     ft_a, ft_b, vt_strict, vt_loose = tables
     state, stats = register_and_triangulate(
-        gen, state, new_view, done_views, ft_a, ft_b, vt_loose, vt_strict,
+        key, state, new_view, done_views, ft_a, ft_b, vt_loose, vt_strict,
         keypoints_xy, colors, K, dist, image_max_dim, config,
     )
     if stats[0] and run_ba:
@@ -208,7 +218,7 @@ def register_adjust_step(
 
 
 def merge_attempt_step(
-    gen, state_a: ReconstructionState, state_b: ReconstructionState,
+    key, state_a: ReconstructionState, state_b: ReconstructionState,
     b_views: Sequence[int], a_views: Sequence[int], tables, keypoints_xy, colors,
     pp, K, dist, fix_cam, config: PipelineConfig, samples: Optional[torch.Tensor] = None,
 ):
@@ -231,7 +241,7 @@ def merge_attempt_step(
         state_a, state_b, ft_a, ft_b, vt_strict
     )
     sim = estimate_sim3_reproj_ransac(
-        gen, Xb, Xa, state_a.cameras[va], keypoints_xy[va, fa], K_cur, m,
+        key, Xb, Xa, state_a.cameras[va], keypoints_xy[va, fa], K_cur, m,
         threshold_px=0.75 * bound, n_hypotheses=16384, min_inliers=8,
         samples=samples,
     )
@@ -363,14 +373,17 @@ class SfMPipeline:
             done=np.asarray(sorted(done), np.int32),
             lost=np.asarray(sorted(lost), np.int32),
             anchor=np.asarray(anchor, np.int32),
-            # Beyond the reference's extras: the generator's state, so that a
-            # resumed run draws the RANSAC samples the uninterrupted one would.
-            rng_state=self._ctx["gen"].get_state().numpy(),
+            # Beyond the reference's extras: the registration key counter,
+            # so that a resumed run draws the RANSAC samples the
+            # uninterrupted one would (the reference restarts it at 0).
+            key_n=np.asarray(self._key_n, np.int64),
         )
 
     def _load_ckpt(self, V: int):
-        """Returns (state, done, lost, anchor) or None; restores the
-        generator's state when the file carries one for this device."""
+        """Returns (state, done, lost, anchor) or None, and restores the
+        registration key counter. A checkpoint without the counter is
+        refused: resuming it would draw other samples than the run that
+        wrote it."""
         if not (self.checkpoint_path and os.path.exists(self.checkpoint_path)):
             return None
         st, extra = load_state(self.checkpoint_path, device=self.device)
@@ -384,10 +397,13 @@ class SfMPipeline:
             return None
         if "done" not in extra:
             return None
-        gen = self._ctx["gen"]
-        rng = extra.get("rng_state")
-        if rng is not None and rng.size == gen.get_state().numel():
-            gen.set_state(torch.as_tensor(rng))
+        if "key_n" not in extra:
+            raise ValueError(
+                f"checkpoint {self.checkpoint_path} has no `key_n` (the RANSAC key "
+                "counter); a resumed run cannot draw the samples of the run that "
+                "wrote it, so it is refused"
+            )
+        self._key_n = int(extra["key_n"])
         return (
             st,
             set(np.asarray(extra["done"]).tolist()),
@@ -424,7 +440,16 @@ class SfMPipeline:
         dist = torch.as_tensor(intrinsics.dist, dtype=torch.float32, device=dev)
         pp = torch.tensor([intrinsics.cx, intrinsics.cy], dtype=torch.float32, device=dev)
         max_dim = float(max(images.shape))
-        gen = torch.Generator(device=dev).manual_seed(cfg.geometry.seed)
+        # The reference's key tree (its sfm.py run): scoring and registration
+        # keys split from the root, the prefilter's folded in. The batched
+        # pair draws hash their words on the card; a registration's few
+        # thousand draws cost less host time hashed on the host and copied
+        # (PERF.md section 5), so the registration keys stay there.
+        root = prng.key(cfg.geometry.seed)
+        k_score, k_reg = prng.split(root, 2).unbind(0)
+        k_pref = prng.fold_in(root, 0x9E1F)
+        self._keys = prng.split(k_reg, V * 32)
+        self._key_n = 0
 
         # 1. Features (src/Sfm.cpp:257-327), the whole batch at once.
         t0 = time.time()
@@ -512,12 +537,12 @@ class SfMPipeline:
         strict = matches.at_ratio(cfg.matching.ratio)
         t0 = time.time()
         scores, vt_loose = score_and_prefilter(
-            gen, strict, matches, kp.xy, pi, pj, K, dist, max_dim, cfg, V
+            k_score.to(dev), k_pref.to(dev), strict, matches, kp.xy, pi, pj, K, dist, max_dim, cfg, V
         )
         ft_a, ft_b, _ = build_match_tables(matches, pi, pj, V)
         _, _, vt_strict = build_match_tables(strict, pi, pj, V)
         self._ctx = dict(
-            gen=gen, tables=(ft_a, ft_b, vt_strict, vt_loose), kp=kp,
+            tables=(ft_a, ft_b, vt_strict, vt_loose), kp=kp,
             colors=colors, pp=pp, K=K, dist=dist, max_dim=max_dim,
             image_size=tuple(images.shape),
         )
@@ -607,7 +632,7 @@ class SfMPipeline:
             state_b, _ = self._run_global_ba(state_b, anchor=bi)
             metrics["n_components"] += 1
             state_m, ms = merge_attempt_step(
-                gen, state, state_b, sorted(done_b), sorted(done), self._ctx["tables"],
+                self._next_key(), state, state_b, sorted(done_b), sorted(done), self._ctx["tables"],
                 kp.xy, colors, pp, K, dist, self._fix_mask(vi), cfg,
             )
             if ms["accepted"]:
@@ -670,7 +695,7 @@ class SfMPipeline:
             b_mask[block] = True
             ft_a, ft_b, vt_strict, _ = self._ctx["tables"]
             state_ra, ra = block_realign(
-                gen, state, b_mask, ft_a, ft_b, vt_strict, kp.xy, _k_matrix(state.focal, pp),
+                self._next_key(), state, b_mask, ft_a, ft_b, vt_strict, kp.xy, _k_matrix(state.focal, pp),
                 threshold_px=0.75 * cfg.geometry.max_merge_reprojection_px, n_hypotheses=16384,
             )
             log.info(
@@ -710,6 +735,13 @@ class SfMPipeline:
         )
 
     # ------------------------------------------------------------------
+    def _next_key(self) -> torch.Tensor:
+        """The next registration key, `keys[key_n % len(keys)]`, as the
+        reference takes it."""
+        key = self._keys[self._key_n % len(self._keys)]
+        self._key_n += 1
+        return key
+
     def _fix_mask(self, anchor: int) -> torch.Tensor:
         fix = torch.zeros((self._ctx["kp"].xy.shape[0],), dtype=torch.bool, device=self.device)
         fix[anchor] = True
@@ -736,7 +768,7 @@ class SfMPipeline:
                     device=self.device,
                 )
                 st, ok, med_ang = bootstrap_adjust_step(
-                    c["gen"], st, bm, c["kp"].xy, c["colors"], bi, bj, c["pp"],
+                    self._next_key(), st, bm, c["kp"].xy, c["colors"], bi, bj, c["pp"],
                     c["K"], c["dist"], self._fix_mask(bi), basin, cfg,
                 )
                 if not bool(ok):
@@ -794,6 +826,10 @@ class SfMPipeline:
         ba_cfg = cfg.ba
         n_grown = 0
         fix = self._fix_mask(anchor)
+        # The map size the guided attempt's skip reads, kept as the
+        # reference keeps it: the point count after the last registration
+        # (after a guided one, the count before its triangulation).
+        size_pts = int(state.n_points)
         failed: dict = {}
         post_guided = bool(guided_block)
         progress = True
@@ -813,14 +849,14 @@ class SfMPipeline:
                     len(done) + 1 >= ba_cfg.local_ba_min_views
                     and (n_grown + 1) % ba_cfg.global_ba_every != 0
                 )
-                state, (ok, n_inl, n_support, _, _) = register_adjust_step(
-                    c["gen"], state, new_view, sorted(done), c["tables"], c["kp"].xy,
+                state, (ok, n_inl, n_support, n_pts, _) = register_adjust_step(
+                    self._next_key(), state, new_view, sorted(done), c["tables"], c["kp"].xy,
                     c["colors"], c["pp"], c["K"], c["dist"], c["max_dim"], cfg, fix,
                     new_view if use_local else None, run_ba=run_ba_every_view,
                 )
                 guided = False
                 if not ok and guided_ctx is not None:
-                    gr = self._guided_attempt(state, new_view, done, guided_ctx)
+                    gr = self._guided_attempt(state, new_view, done, guided_ctx, size_pts)
                     if gr is not None:
                         state_g, gs = gr
                         log.info(
@@ -858,20 +894,22 @@ class SfMPipeline:
                     guided_block.append(new_view)
                 n_grown += 1
                 progress = True
+                size_pts = n_pts
                 if ckpt_cb is not None:
                     ckpt_cb(state, done)
             if len(done) + len(exclude) >= V:
                 break
         return state
 
-    def _guided_attempt(self, state, new_view: int, done: set, guided_ctx):
+    def _guided_attempt(self, state, new_view: int, done: set, guided_ctx, size_pts: int):
         """Host side of guided bridge registration (pipeline/guided.py): the
         coarse-pose candidates from the pose-graph edge to the best-matched
         registered view (rotation from two-view scoring up to the epipolar
         basin, the baseline scale swept over a range set by the component's
         own camera spacing). Returns (state, stats), or None when guided
         bridging is off, too few views are registered, no usable edge exists
-        or the map is too large for the (K, B) affinity."""
+        or the map is too large for the (K, B) affinity. The attempt takes a
+        registration key only past these checks, as the reference's does."""
         c = self._ctx
         cfg = self.config
         g = cfg.geometry
@@ -911,11 +949,13 @@ class SfMPipeline:
         n_sweep = (g.guided_n_scales // 2) * 2
         s_pos = np.linspace(0.4, 5.0, n_sweep // 2) * max(b_med, 1e-6)
         sweep = torch.as_tensor(np.concatenate([s_pos, -s_pos]).astype(np.float32), device=self.device)
-        n_pts = int(state.n_points)
-        if int(1.2 * n_pts) + 64 > 4096:
+        if int(1.2 * size_pts) + 64 > 4096 and state.capacity > 8192:
             # The (K, B) affinity would leave the cheap regime; maps this
-            # large have dense covisibility and rarely starve anyway.
-            log.info("guided bridge skipped: map too large (%d points)", n_pts)
+            # large have dense covisibility and rarely starve anyway. The
+            # rule is the reference's bucketed one (a bucket past 8192
+            # slots) on its own map-size bookkeeping (`size_pts`), so that
+            # both skip alike and take their keys alike.
+            log.info("guided bridge skipped: map too large (%d points)", size_pts)
             return None
         log.info(
             "view %d: guided bridge attempt via edge to view %d (%d scored matches, b_med %.4f)",
@@ -924,7 +964,7 @@ class SfMPipeline:
         ft_a, ft_b, vt_strict, _ = c["tables"]
         kp = c["kp"]
         return guided_bridge_register(
-            c["gen"], state, new_view, done_sorted, d_star, R_dn, t_dn, sweep, kp.xy,
+            self._next_key(), state, new_view, done_sorted, d_star, R_dn, t_dn, sweep, kp.xy,
             kp.descriptors, kp.valid, c["colors"], ft_a, ft_b, vt_strict, c["K"], c["dist"],
             c["max_dim"], c["image_size"], b_med, cfg,
         )

@@ -7,7 +7,8 @@ either package loads in the other, field for field (exact: the arrays are
 stored, not recomputed). A run killed after its fourth view and resumed from
 the per-view checkpoint ends with the uninterrupted run's registered set and
 the same final RMS bit for bit: the CPU path is deterministic and the
-checkpoint carries the generator's state.
+checkpoint carries the RANSAC key counter `key_n`; a checkpoint without it
+is refused.
 
 The CLI runs on a V=6 scene written as 240x320 PNGs with `--device cpu` and
 every stage. The scene is the 480x640 courtyard arc box-filtered to half
@@ -159,6 +160,24 @@ def test_mid_run_kill_and_resume(tmp_path):
     # A checkpoint whose shapes do not fit the config is ignored, not loaded.
     other = PipelineConfig(max_points=4096, features=FeatureConfig(max_keypoints=V6_MAX_KEYPOINTS))
     assert SfMPipeline(other, checkpoint_path=cut, device="cpu")._load_ckpt(6) is None
+
+
+def test_resume_refuses_a_checkpoint_without_key_n(tmp_path):
+    """A checkpoint without the RANSAC key counter (the reference's, or an
+    older port's) would resume on other draws than the run that wrote it:
+    it is refused, naming the field, and resumed with it."""
+    from sfm_danpipeline_torch.pipeline.tracks import init_state
+
+    cfg = PipelineConfig(max_points=256, features=FeatureConfig(max_keypoints=64))
+    path = str(tmp_path / "ckpt.npz")
+    extras = dict(done=np.array([0, 1], np.int32), lost=np.zeros(0, np.int32), anchor=np.int32(0))
+    t_ckpt.save_state(path, init_state(4, 64, 256, 500.0, device="cpu"), **extras)
+    pipe = SfMPipeline(cfg, checkpoint_path=path, device="cpu")
+    with pytest.raises(ValueError, match="key_n"):
+        pipe._load_ckpt(4)
+    t_ckpt.save_state(path, init_state(4, 64, 256, 500.0, device="cpu"), key_n=np.int64(7), **extras)
+    _, done, _, _ = pipe._load_ckpt(4)
+    assert done == {0, 1} and pipe._key_n == 7
 
 
 # ---------------------------------------------------------------------------

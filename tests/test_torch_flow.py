@@ -5,9 +5,11 @@ Parity on two rendered 120x160 courtyard frames: `lk_track` endpoints
 within 1e-3 px where the reference's track is ok and the ok masks equal (the
 window sums of 441 samples round in other orders; the observed difference
 is ~4e-5 px), and `flow_match_pair`'s valid (idx_a, idx_b) sets equal. The
-slot order inside a match set is by association distance, whose
-|a|^2+|b|^2-2ab form cancels to ~1e-3 px in float32, so sets are compared,
-not slots.
+slot order inside a match set is by association distance. The reference's
+|a|^2+|b|^2-2ab form cancels to ~1e-3 px in float32, so against the
+reference sets are compared, not slots; the port computes the distance from
+the coordinate differences, and its association (chosen keypoint, distance,
+slot order) is held to a float64 computation on the same tracked points.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -86,6 +88,53 @@ def test_flow_match_sets_agree_at_full_size():
         sj, st = _pair_set(mj, np.asarray), _pair_set(mt, lambda t: t.numpy())
         assert len(sj) > floor
         assert len(sj ^ st) <= 0.005 * len(sj), (a, b, len(sj), len(st), len(sj ^ st))
+
+
+def _association_f64(pts1, ok, xy1, valid1, radius, max_matches):
+    """flow_match_pair's association in float64 numpy: the nearest valid
+    keypoint, its distance, and the slots by distance, lower index first on
+    ties."""
+    p, q = pts1.astype(np.float64), xy1.astype(np.float64)
+    d2 = ((p[:, None, :] - q[None, :, :]) ** 2).sum(-1)
+    d2[:, ~valid1] = np.inf
+    best = np.argmin(d2, axis=1)
+    bestd = np.sqrt(d2[np.arange(len(p)), best])
+    keep = ok & (bestd <= radius)
+    order = np.argsort(np.where(keep, bestd, np.inf), kind="stable")[:max_matches]
+    return order, best[order], bestd[order], keep[order]
+
+
+@pytest.mark.parametrize("size", ["frames", "full"])
+def test_association_equals_float64(frames, size):
+    """The chosen keypoint, the association distance and the slot order
+    against float64 on the same tracked endpoints: the distance from the
+    coordinate differences leaves nothing to rounding but its last bit, so
+    card and CPU order the slots alike. `frames`: random keypoints on two
+    120x160 frames; `full`: an adjacent pair of the narrow 480x640 arc with
+    SIFT keypoints, where most endpoints lie within 0.1 px of a keypoint."""
+    if size == "frames":
+        g, xy0, v0, xy1, v1 = frames
+        img0, img1, radius, budget = g[0], g[1], 6.0, 256
+    else:
+        from sfm_danpipeline_torch.config import FeatureConfig
+        from sfm_danpipeline_torch.ops.sift import detect_and_compute_batch
+
+        scene = make_courtyard_scene(n_views=10, ring_fraction=0.05, seed=0)
+        gray = scene.images.gray[[0, 1]]
+        kp = detect_and_compute_batch(torch.tensor(gray), FeatureConfig())
+        xy0, xy1 = kp.xy[0].numpy(), kp.xy[1].numpy()
+        v0, v1 = kp.valid[0].numpy(), kp.valid[1].numpy()
+        img0, img1, radius, budget = gray[0], gray[1], 3.0, 1024
+    args = [torch.tensor(a) for a in (img0, img1, xy0, v0, xy1, v1)]
+    m = t_flow.flow_match_pair(*args, radius=radius, max_matches=budget)
+    pts1, ok = t_flow.lk_track(*args[:4])
+    order, best, dist, keep = _association_f64(pts1.numpy(), ok.numpy(), xy1, v1, radius, budget)
+    n = int(keep.sum())
+    assert n > 50 and int(m.valid.sum()) == n
+    np.testing.assert_array_equal(m.valid.numpy()[:n], True)
+    np.testing.assert_array_equal(m.idx_a.numpy()[:n], order[:n])
+    np.testing.assert_array_equal(m.idx_b.numpy()[:n], best[:n])
+    np.testing.assert_allclose(m.dist.numpy()[:n], dist[:n], rtol=1e-6, atol=1e-6)
 
 
 def test_all_pairs_equals_pair_by_pair(frames):

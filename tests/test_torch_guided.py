@@ -4,14 +4,14 @@ with the JAX reference.
 
   - guided_bridge_register: the three synthetic cases of tests/test_guided.py
     (a clean edge; 60% wrong edge matches with a 1.5 degree rotation error;
-    no support) through both packages, the PnP RANSAC draws of the port
-    injected from the reference's key. Acceptance, basin, anchored counts
+    no support) through both packages, both drawing the PnP RANSAC
+    samples from the reference test's key. Acceptance, basin, anchored counts
     and support are held equal; the pose to 1e-3 rad / 1e-3 (float32
     Gauss-Newton after RANSAC), and the committed observations equal.
   - block_realign: a reconstruction whose block of views {3, 4, 5} carries a
     known Sim(3) error (the block's own cameras and points moved together,
-    so it is internally consistent), both packages with the Sim(3) draws
-    injected: the same stats, the block's cameras back on the truth, the
+    so it is internally consistent), both packages drawing the Sim(3)
+    samples from one key: the same stats, the block's cameras back on the truth, the
     same fused tracks.
   - a small guided_enable=True pipeline run: the same registered views and
     guided registrations as the reference.
@@ -24,10 +24,10 @@ import numpy as np
 import pytest
 import torch
 
-from sfm_danpipeline_tpu.ops.ransac import sample_indices as j_sample
 from sfm_danpipeline_tpu.pipeline import merge as j_merge
 from sfm_danpipeline_torch import interop
 from sfm_danpipeline_torch.config import PipelineConfig
+from sfm_danpipeline_torch.ops import prng
 from sfm_danpipeline_torch.ops.lie import exp_so3
 from sfm_danpipeline_torch.pipeline import merge as t_merge
 from sfm_danpipeline_torch.pipeline.guided import _nanmedian, guided_bridge_register
@@ -42,22 +42,6 @@ def _state_np(st):
     return {k: np.asarray(getattr(st, k)) for k in STATE_FIELDS}
 
 
-def _pnp_draws_from_reference(key, n_hyp):
-    """The reference's solve_pnp_ransac draws for a validity mask (its guided
-    round passes the keep mask as both `valid` and `sample_mask`)."""
-    k_dlt, k_p3p, k_p3s = jax.random.split(key, 3)
-
-    def draws(keep):
-        jv = jnp.asarray(keep.numpy())  # the strict subset is all of it
-        idx6 = j_sample(k_dlt, jv, max(256, n_hyp // 4), 6)
-        idx3 = jnp.concatenate([
-            j_sample(k_p3p, jv, n_hyp // 2, 3), j_sample(k_p3s, jv, n_hyp // 2, 3)
-        ])
-        return torch.as_tensor(np.asarray(idx6)), torch.as_tensor(np.asarray(idx3))
-
-    return draws
-
-
 def _run_port(setup, cfg=None):
     (
         state, new_view, d_star, R_dn, t_dn, sweep, kp_xy, desc,
@@ -66,11 +50,11 @@ def _run_port(setup, cfg=None):
     cfg = cfg or PipelineConfig()
     t = torch.as_tensor
     return guided_bridge_register(
-        None, interop.state_from_numpy(_state_np(state)), new_view,
+        interop.key_from_numpy(jax.random.key_data(jax.random.key(GUIDED_KEY))),
+        interop.state_from_numpy(_state_np(state)), new_view,
         [int(v) for v in dv if v >= 0], d_star, t(R_dn), t(t_dn), t(sweep), t(kp_xy), t(desc),
         t(kp_valid), t(colors), t(ft_a), t(ft_b), t(vt), t(K, dtype=torch.float32),
         torch.zeros(5), 640.0, (480, 640), 1.5, cfg,
-        samples=_pnp_draws_from_reference(jax.random.key(GUIDED_KEY), cfg.geometry.pnp_ransac_iters),
     )
 
 
@@ -219,9 +203,8 @@ def realign_runs():
     )
     t = torch.as_tensor
     st_t, stats_t = t_merge.block_realign(
-        None, interop.state_from_numpy(st), t(b_mask), t(ft_a), t(ft_b), t(vt), t(kp_xy), t(K),
-        threshold_px=6.0, n_hypotheses=4096,
-        samples=lambda m: t(np.asarray(j_sample(key, jnp.asarray(m.numpy()), 4096, 3))),
+        interop.key_from_numpy(jax.random.key_data(key)), interop.state_from_numpy(st), t(b_mask),
+        t(ft_a), t(ft_b), t(vt), t(kp_xy), t(K), threshold_px=6.0, n_hypotheses=4096,
     )
     return truth, sj, np.asarray(stats_j), st_t, stats_t
 
@@ -256,12 +239,12 @@ def test_block_realign_without_candidates_changes_nothing():
     t = torch.as_tensor
     state = interop.state_from_numpy(st)
     out, stats = t_merge.block_realign(
-        torch.Generator().manual_seed(0), state, t(b_mask), t(ft_a), t(ft_b), t(np.zeros_like(vt)),
+        prng.key(0), state, t(b_mask), t(ft_a), t(ft_b), t(np.zeros_like(vt)),
         t(kp_xy), t(K), threshold_px=6.0, n_hypotheses=256,
     )
     assert stats["n_candidates"] > 0  # the cross tracks remain
     out, stats = t_merge.block_realign(
-        torch.Generator().manual_seed(0), state, t(np.zeros_like(b_mask)), t(ft_a), t(ft_b), t(vt),
+        prng.key(0), state, t(np.zeros_like(b_mask)), t(ft_a), t(ft_b), t(vt),
         t(kp_xy), t(K), threshold_px=6.0, n_hypotheses=256,
     )
     assert not stats["ok"] and stats["n_candidates"] == 0 and out is state

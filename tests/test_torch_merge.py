@@ -5,7 +5,8 @@ pipeline/sfm.py) with the JAX reference.
 The cases of tests/test_similarity.py run through both packages on the
 same numpy inputs, RANSAC draws injected from the reference's key:
 indices and masks must be equal and floats within 1e-5 (1e-4 where an
-SVD of a noisy covariance sits in between). The merge-attempt stage test
+SVD of a noisy covariance sits in between). The merge attempt's Sim(3)
+draws come from one key in both packages. The merge-attempt stage test
 splits the reference's V=6 reconstruction into A = {0,1,2} and B = {3,4,5},
 moves B by a known Sim(3), and runs both packages' merge attempts: both
 must accept with the same stats and recover the scale within 1e-3; the
@@ -285,15 +286,15 @@ def merge_runs():
         key, Xb, Xa, ja.cameras[va], jnp.asarray(ref.keypoints_xy)[va, fa], K_cur, m,
         threshold_px=0.75 * cfg.geometry.max_merge_reprojection_px, n_hypotheses=16384, min_inliers=8,
     )
-    samples = _t(j_sample(key, m, 16384, 3))
     # Both packages' merged geometry before the attempt's triangulation and
-    # BA, each with its own Sim(3) estimate.
+    # BA, each with its own Sim(3) estimate from the same key.
+    tkey = interop.key_from_numpy(jax.random.key_data(key))
     ta, tb = interop.state_from_numpy(st_a), interop.state_from_numpy(st_b)
     o = t_merge.cross_component_pairs(ta, tb, *(_t(a) for a in ref.tables))
     t_simres = t_sim.estimate_sim3_reproj_ransac(
-        None, o[1], o[0], ta.cameras[o[4]], _t(ref.keypoints_xy)[o[4], o[5]], _t(K_cur), o[6],
+        tkey, o[1], o[0], ta.cameras[o[4]], _t(ref.keypoints_xy)[o[4], o[5]], _t(K_cur), o[6],
         threshold_px=0.75 * cfg.geometry.max_merge_reprojection_px, n_hypotheses=16384,
-        min_inliers=8, samples=samples,
+        min_inliers=8,
     )
     _, _, pid_a, pid_b, _, _, _ = j_merge.cross_component_pairs(
         ja, jb, jnp.asarray(ft_a), jnp.asarray(ft_b), jnp.asarray(vt)
@@ -307,9 +308,9 @@ def merge_runs():
         tcfg, ba=dataclasses.replace(tcfg.ba, **MERGE_BA)
     )
     t_state, t_stats = merge_attempt_step(
-        None, interop.state_from_numpy(st_a), interop.state_from_numpy(st_b), B_VIEWS, A_VIEWS,
+        tkey, interop.state_from_numpy(st_a), interop.state_from_numpy(st_b), B_VIEWS, A_VIEWS,
         tuple(_t(a) for a in ref.tables), _t(ref.keypoints_xy), _t(ref.colors), _t(pp), _t(K),
-        _t(dist), _t(fixv), tcfg, samples=samples,
+        _t(dist), _t(fixv), tcfg,
     )
     return dict(
         j_state=j_state, j_stats=np.asarray(j_stats), j_sim=j_simres, t_state=t_state,

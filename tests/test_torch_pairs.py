@@ -7,11 +7,13 @@ own one-pair calls.
 Input: 300 points in a 4 x 3 x 4 box seen by 6 cameras on an arc 0.25 rad
 apart (0.2 px noise), 384 match slots per pair with 10% wrong matches, and
 the 3 widest-apart pairs cut to 100 valid matches (below min_pair_matches,
-so unusable but still estimated). The port cannot reproduce JAX's threefry
-draws, so the reference's draws are derived from its keys as it derives
-them and injected: scoring splits its key per pair and each pair's key into
-(essential, homography) keys (pipeline/bootstrap.py:70, :130); the
-prefilter splits its key over the pairs (pipeline/incremental.py:119).
+so unusable but still estimated). Both packages take the same key
+(`interop.key_from_numpy`) and draw the same samples from it: scoring splits
+its key per pair and each pair's key into (essential, homography) keys
+(pipeline/bootstrap.py:70, :130 of the reference); the prefilter splits its
+key over the pairs (pipeline/incremental.py:119). The draws the reference
+derives that way are also injected (`samples=`) where a test holds the
+port's batch against its own one-pair calls.
 
 Tolerances against the reference are those of tests/test_torch_ransac.py:
 ok and usable flags and match counts equal, rotations within 2e-3 rad,
@@ -43,8 +45,10 @@ from sfm_danpipeline_tpu.ops.matching import PairMatches as JPairMatches
 from sfm_danpipeline_tpu.ops.ransac import sample_indices as j_sample
 from sfm_danpipeline_tpu.pipeline import bootstrap as j_boot
 from sfm_danpipeline_tpu.pipeline import incremental as j_inc
+from sfm_danpipeline_torch import interop
 from sfm_danpipeline_torch.config import PipelineConfig
 from sfm_danpipeline_torch.ops import epipolar as t_epi
+from sfm_danpipeline_torch.ops import prng
 from sfm_danpipeline_torch.ops import ransac as t_ransac
 from sfm_danpipeline_torch.ops.matching import PairMatches
 from sfm_danpipeline_torch.pipeline import bootstrap as t_boot
@@ -104,6 +108,11 @@ def pairs():
 
 def _t(a):
     return torch.tensor(np.asarray(a))
+
+
+def _tkey(key):
+    """A reference key (or a batch of them) as the port's key."""
+    return interop.key_from_numpy(jax.random.key_data(key))
 
 
 def _t_matches(d):
@@ -181,7 +190,7 @@ def scored(pairs):
     )
     draws = _score_draws(key, d["valid"], jcfg)
     kp, pi, pj, K, dist = _t_args(d)
-    ts = t_boot.score_pairs(None, _t_matches(d), kp, pi, pj, K, dist, MAX_DIM, tcfg, samples=draws)
+    ts = t_boot.score_pairs(_tkey(key), _t_matches(d), kp, pi, pj, K, dist, MAX_DIM, tcfg)
     keys_e = [jax.random.split(k)[0] for k in jax.random.split(key, len(d["pi"]))]
     alt = _alt_well_posed(keys_e, d)
     assert alt.sum() >= 4
@@ -220,14 +229,15 @@ def test_best_pair_matches_reference(scored):
 @pytest.mark.parametrize("basins", [False, True])
 def test_batched_pose_matches_reference(pairs, scored, basins):
     """The batched estimators' every field against the reference's one-pair
-    estimator, pair by pair, on scoring's essential draws."""
+    estimator, pair by pair, on scoring's essential keys."""
     d = pairs
     x1, x2 = _normalized(d)
     f = float(d["K"][0, 0])
-    _, _, (draws, _), keys, alt = scored
+    _, _, _, keys, alt = scored
     tfn = t_epi.estimate_relative_pose_basins if basins else t_epi.estimate_relative_pose
     jfn = j_epi.estimate_relative_pose_basins if basins else j_epi.estimate_relative_pose
-    pt = tfn(None, _t(x1), _t(x2), _t(d["valid"]), focal=f, samples=draws)
+    tkeys = torch.stack([_tkey(k) for k in keys])
+    pt = tfn(tkeys, _t(x1), _t(x2), _t(d["valid"]), focal=f)
     for p in range(len(x1)):
         pj = jfn(keys[p], jnp.asarray(x1[p]), jnp.asarray(x2[p]), jnp.asarray(d["valid"][p]), focal=f)
         for b in range(2 if basins else 1):
@@ -258,8 +268,8 @@ def test_prefilter_table_matches_reference(pairs):
     ))
     kp, pi, pj, K, dist = _t_args(d)
     tt = t_inc.epipolar_prefilter_table(
-        None, _t(d["idx_a"]), _t(d["idx_b"]), _t(d["valid"]), kp, pi, pj, K, dist, tcfg,
-        d["n_views"], samples=_prefilter_draws(key, d["valid"], jcfg),
+        _tkey(key), _t(d["idx_a"]), _t(d["idx_b"]), _t(d["valid"]), kp, pi, pj, K, dist, tcfg,
+        d["n_views"],
     ).numpy()
     assert tt.shape == jt.shape
     for p, (i, j) in enumerate(zip(d["pi"], d["pj"])):
@@ -297,7 +307,7 @@ def test_batched_pose_equals_one_pair_calls(pairs, basins):
     d = pairs
     x1, x2 = (_t(x) for x in _normalized(d))
     valid = _t(d["valid"])
-    draws = t_ransac.sample_indices(torch.Generator().manual_seed(4), valid, 512, 8)
+    draws = t_ransac.sample_indices(prng.split(prng.key(4), len(valid)), valid, 512, 8)
     fn = t_epi.estimate_relative_pose_basins if basins else t_epi.estimate_relative_pose
     f = float(d["K"][0, 0])
     batch = fn(None, x1, x2, valid, focal=f, samples=draws)
@@ -316,7 +326,9 @@ def test_prefilter_equals_one_pair_calls(pairs):
     kp, pi, pj, K, dist = _t_args(d)
     cfg = PipelineConfig()
     valid = _t(d["valid"])
-    draws = t_ransac.sample_indices(torch.Generator().manual_seed(8), valid, cfg.geometry.prefilter_ransac_iters, 8)
+    draws = t_ransac.sample_indices(
+        prng.split(prng.key(8), len(valid)), valid, cfg.geometry.prefilter_ransac_iters, 8
+    )
     table = t_inc.epipolar_prefilter_table(
         None, _t(d["idx_a"]), _t(d["idx_b"]), valid, kp, pi, pj, K, dist, cfg, d["n_views"], samples=draws,
     )
@@ -329,38 +341,41 @@ def test_prefilter_equals_one_pair_calls(pairs):
 
 
 def test_draws_come_essential_then_homography_then_prefilter(pairs):
-    """score_pairs and the prefilter draw from the generator in one call
-    each per estimator: every pair's essential draws, then every pair's
-    homography draws, then the prefilter's."""
+    """score_pairs and the prefilter draw what the reference's key tree
+    gives them: scoring's key split per pair and each pair's into its
+    essential and homography keys, the prefilter's key split per pair. The
+    port's keyed calls equal its calls on those draws injected, and the
+    draws equal the reference's, index for index."""
     d = pairs
     kp, pi, pj, K, dist = _t_args(d)
     cfg = PipelineConfig()
-    g = cfg.geometry
+    jcfg = JConfig()
     valid = _t(d["valid"])
     m = _t_matches(d)
-    gen = torch.Generator().manual_seed(21)
-    s_gen = t_boot.score_pairs(gen, m, kp, pi, pj, K, dist, MAX_DIM, cfg)
-    f_gen = t_inc.epipolar_prefilter_table(
-        gen, m.idx_a, m.idx_b, valid, kp, pi, pj, K, dist, cfg, d["n_views"]
+    key_s, key_p = jax.random.key(21), jax.random.key(22)
+    s_key = t_boot.score_pairs(_tkey(key_s), m, kp, pi, pj, K, dist, MAX_DIM, cfg)
+    f_key = t_inc.epipolar_prefilter_table(
+        _tkey(key_p), m.idx_a, m.idx_b, valid, kp, pi, pj, K, dist, cfg, d["n_views"]
     )
-    ref = torch.Generator().manual_seed(21)
-    draws = (
-        t_ransac.sample_indices(ref, valid, g.essential_ransac_iters, 8),
-        t_ransac.sample_indices(ref, valid, g.homography_ransac_iters, 4),
-    )
-    pre = t_ransac.sample_indices(ref, valid, g.prefilter_ransac_iters, 8)
+    draws = _score_draws(key_s, d["valid"], jcfg)
+    pre = _prefilter_draws(key_p, d["valid"], jcfg)
+    k_e, k_h = prng.split(prng.split(_tkey(key_s), len(valid)), 2).unbind(-2)
+    g = cfg.geometry
+    assert torch.equal(t_ransac.sample_indices(k_e, valid, g.essential_ransac_iters, 8), draws[0])
+    assert torch.equal(t_ransac.sample_indices(k_h, valid, g.homography_ransac_iters, 4), draws[1])
     s_inj = t_boot.score_pairs(None, m, kp, pi, pj, K, dist, MAX_DIM, cfg, samples=draws)
     f_inj = t_inc.epipolar_prefilter_table(
         None, m.idx_a, m.idx_b, valid, kp, pi, pj, K, dist, cfg, d["n_views"], samples=pre
     )
-    for a, b in zip(s_gen, s_inj):
+    for a, b in zip(s_key, s_inj):
         assert torch.equal(a, b)
-    assert torch.equal(f_gen, f_inj)
-    # Each pair draws only its own valid slots; one pair's draws are the
-    # same stream a batch of one takes.
+    assert torch.equal(f_key, f_inj)
+    # Each pair draws only its own valid slots; one pair's draws are what
+    # a batch of one draws from the same key.
     assert bool(torch.all(torch.gather(valid, 1, draws[0].reshape(len(valid), -1).long())))
-    one = t_ransac.sample_indices(torch.Generator().manual_seed(2), valid[3], 64, 8)
-    batch_of_one = t_ransac.sample_indices(torch.Generator().manual_seed(2), valid[3:4], 64, 8)
+    k = prng.key(2)
+    one = t_ransac.sample_indices(k, valid[3], 64, 8)
+    batch_of_one = t_ransac.sample_indices(k[None], valid[3:4], 64, 8)
     assert torch.equal(one, batch_of_one[0])
 
 

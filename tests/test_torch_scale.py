@@ -22,7 +22,9 @@ ATE 0.035% of the diameter, plain LM 4.0%, measured on a CPU). At the full
 36 views the reference's test misses its own rotavg gate on this tree
 (ATE 3.05% of the diameter, plain LM 5.3%, measured on a CPU), and so does
 the port's twin; PERF.md records both.
-The port runs on the CPU with a torch.Generator for its RANSAC draws.
+The port runs on the CPU and draws its RANSAC samples from the reference
+tests' own keys (`split(key(seed), V * 32)` for registration, `key(99)` for
+the ring's pair scoring).
 """
 import dataclasses
 
@@ -31,6 +33,7 @@ import pytest
 import torch
 
 from sfm_danpipeline_torch.config import FeatureConfig, PipelineConfig
+from sfm_danpipeline_torch.ops import prng
 from sfm_danpipeline_torch.ops.lie import exp_so3, log_so3
 from sfm_danpipeline_torch.ops.matching import PairMatches
 from sfm_danpipeline_torch.ops.sift import Keypoints
@@ -142,8 +145,10 @@ def _pipeline(kp_xy, kp_valid, matches, pi, pj, max_points, seed):
         descriptors=torch.zeros((V, kmax, 128)), valid=torch.tensor(kp_valid),
     )
     ft_a, ft_b, vt = build_match_tables(matches, pi, pj, V)
+    pipe._keys = prng.split(prng.key(seed), V * 32)
+    pipe._key_n = 0
     pipe._ctx = dict(
-        gen=torch.Generator().manual_seed(seed), tables=(ft_a, ft_b, vt, vt), kp=kp,
+        tables=(ft_a, ft_b, vt, vt), kp=kp,
         colors=torch.zeros((V, kmax, 3)), pp=torch.tensor([320.0, 240.0]),
         K=torch.tensor([[800.0, 0, 320.0], [0, 800.0, 240.0], [0, 0, 1.0]]), dist=torch.zeros(5),
         max_dim=640.0, image_size=(480, 640),
@@ -188,7 +193,7 @@ def _ring_twin(V, n_pts, sector_deg):
     assert len(done) == V, f"only {len(done)}/{V} ring views registered"
     c = pipe._ctx
     scores = score_pairs(
-        torch.Generator().manual_seed(99), matches, c["kp"].xy, pi, pj, c["K"], c["dist"], 640.0,
+        prng.key(99), matches, c["kp"].xy, pi, pj, c["K"], c["dist"], 640.0,
         pipe.config,
     )
     # The reference test's injected drift: a world-side rotation warp that

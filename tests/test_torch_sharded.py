@@ -12,10 +12,15 @@ are held equal. The shard devices are a list that repeats the CPU, as the
 card's smoke run repeats cuda:0.
 
 The pipeline with two shard devices runs everything before its final BA on
-identical inputs, so those numbers are held equal; its final 50-iteration
-BA (one camera fixed, so a scale gauge remains) ends in a flat float32
-valley where the summation order moves the endpoint: cameras are held to
-2e-3 (measured 9.9e-4) and the final cost to rtol 1e-3.
+identical inputs, so those numbers are held equal. Its final 50-iteration
+BA (one camera fixed) ends in a flat float32 valley where the summation
+order moves the endpoint along directions the cost does not see: on this
+scene the weakly held y translation of the last camera ends 2.2e-3 apart at
+the same cost (11.62791). So the test holds what the summation order cannot
+move: the final cost to rtol 1e-3, the rotations to 2e-3 (measured 1.2e-4),
+and the camera centres after a similarity alignment (the gauge) to an RMS
+of 2e-3 (measured 3.2e-4, against a trajectory error of 4.0e-2 from the
+scene's true centres).
 """
 import dataclasses
 
@@ -35,6 +40,7 @@ from sfm_danpipeline_torch.config import BAConfig
 from sfm_danpipeline_torch.ops.matching import match_all_pairs
 from sfm_danpipeline_torch.parallel.matching import match_all_pairs_sharded
 from sfm_danpipeline_torch.utils import knn_cases
+from sfm_danpipeline_torch.utils.metrics import aligned_rmse, camera_centers
 from tests.test_ba import _problem_from_scene, _rms_px
 from torch_testing import one_torch_thread  # noqa: F401
 
@@ -186,9 +192,9 @@ def test_pipeline_sharded_equals_single_device(pipeline_runs):
     np.testing.assert_allclose(
         sharded.metrics["ba_final_cost"], plain.metrics["ba_final_cost"], rtol=1e-3
     )
-    np.testing.assert_allclose(
-        sharded.state.cameras.numpy(), plain.state.cameras.numpy(), atol=2e-3
-    )
+    cams_s, cams_p = sharded.state.cameras.numpy(), plain.state.cameras.numpy()
+    np.testing.assert_allclose(cams_s[:, :3], cams_p[:, :3], atol=2e-3)
+    assert aligned_rmse(camera_centers(cams_s), camera_centers(cams_p)) <= 2e-3
     assert abs(sharded.metrics["n_points"] - plain.metrics["n_points"]) <= 2
     assert sharded.metrics["ba_rms_px"] < 1.0
 

@@ -20,8 +20,9 @@ STATE_FIELDS = (
 
 @functools.lru_cache(maxsize=None)
 def reference_v6():
-    """Scene, config, the reference's SfMResult, its state as numpy, and
-    the reference's match tables for the same keypoints."""
+    """Scene, config, the reference's SfMResult, its state as numpy, the
+    number of registration keys it took, and the reference's match tables
+    for the same keypoints."""
     import jax.numpy as jnp
 
     from sfm_danpipeline_tpu.config import FeatureConfig, PipelineConfig
@@ -32,7 +33,8 @@ def reference_v6():
 
     scene = make_courtyard_scene(**V6_SCENE)
     cfg = PipelineConfig(features=FeatureConfig(max_keypoints=V6_MAX_KEYPOINTS))
-    res = SfMPipeline(cfg).run(scene.images, scene.intrinsics)
+    pipe = SfMPipeline(cfg)
+    res = pipe.run(scene.images, scene.intrinsics)
     kp = res.keypoints
     V = scene.images.n_images
     pi, pj = _pair_list(V)
@@ -46,7 +48,7 @@ def reference_v6():
     ft_a, ft_b, _ = build_match_tables(matches, jnp.asarray(pi), jnp.asarray(pj), V)
     _, _, vt_strict = build_match_tables(strict, jnp.asarray(pi), jnp.asarray(pj), V)
     return SimpleNamespace(
-        scene=scene, config=cfg, result=res, pi=pi, pj=pj, strict=strict,
+        scene=scene, config=cfg, result=res, key_n=pipe._key_n, pi=pi, pj=pj, strict=strict,
         state={k: np.asarray(getattr(res.state, k)) for k in STATE_FIELDS},
         keypoints_xy=np.asarray(kp.xy),
         colors=np.asarray(_keypoint_colors(scene.images, kp)),

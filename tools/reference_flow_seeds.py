@@ -8,9 +8,9 @@ Runs sfm_danpipeline_tpu's SfMPipeline with `method="flow"` on the narrow
 V=10 courtyard arc (480x640, ring_fraction 0.05, scene seed 0) once per
 `geometry.seed` and prints registered views, the seed pair, RMS, points and
 the trajectory error of each run, or that no seed pair survived. The port's
-counterpart on a CUDA card is `tools/torch_stage_probe.py flow-seeds`; the
-two packages draw other random numbers from one seed, so the distributions
-are compared, not the runs.
+counterpart is `tools/torch_stage_probe.py flow-seeds` (on a CUDA card, or
+with `--device cpu`); both packages draw the same RANSAC samples from one
+seed, so the runs are compared seed for seed.
 """
 import argparse
 import dataclasses

@@ -12,11 +12,13 @@ repository: run old, new, new, old in one call to compare two commits on one
 card.
 
     python3 tools/torch_stage_probe.py time-baseline [--root DIR] [--scenes v10 v20] [--repeats 3]
+        [--baseline-seeds 0]
 
 runs SfMPipeline on each scene (v10: the V=10 control, ring_fraction 0.2;
 v20: the V=20 arc, 0.4; ring50: the 50-view ring, ring_fraction 1.0, as
-tools/bench_scale.py builds it) `--repeats` times and prints, per scene,
-the median of each part of t_baseline: pair scoring, the all-pairs
+tools/bench_scale.py builds it) at each `geometry.seed` of
+`--baseline-seeds`, `--repeats` times, and prints, per scene and seed, the
+median of each part of t_baseline: pair scoring, the all-pairs
 prefilter, the seed bootstrap (`_try_seed`) and the rest, each timed by
 wrapping the function with synchronized wall clocks, beside t_baseline,
 t_total, the registered views, RMS, ATE and the card's peak memory. The
@@ -55,6 +57,20 @@ flow) under torch.use_deterministic_algorithms(True, warn_only=True) and
 prints every operation PyTorch warns about. A run may end differently under
 that setting (cuBLAS takes another workspace, so last bits differ); the audit
 reports it, goes on, and exits 1 if any run stopped.
+
+    python3 tools/torch_stage_probe.py eigh-audit
+
+compares the 8-point fits' null vectors (the smallest eigenvector of each
+hypothesis' A^T A) from the card's and the CPU's float32 eigh with a
+float64 eigh of the same matrices, on the pipeline's seed-0 scoring draws
+of the V=10 control and the narrow flow arc.
+
+    python3 tools/torch_stage_probe.py flow-frontend [--seeds 0 1 2 ...]
+
+compares the flow arc's front end (SIFT keypoints, flow match sets and
+their slot order) on the card with the CPU's, then runs the pipeline at
+each seed on the CPU's front end with the back end on the card and on the
+CPU.
 
     python3 tools/torch_stage_probe.py flow-seeds [--seeds 0 1 2 ...] [--device cpu] [--root DIR]
 
@@ -183,7 +199,7 @@ def _timed_parts():
     return times, undo
 
 
-def time_baseline(scenes, repeats):
+def time_baseline(scenes, repeats, seeds=(0,)):
     from sfm_danpipeline_torch.config import PipelineConfig
     from sfm_danpipeline_torch.pipeline.sfm import SfMPipeline
     from sfm_danpipeline_torch.utils.synthscene import make_courtyard_scene
@@ -191,15 +207,17 @@ def time_baseline(scenes, repeats):
     import sfm_danpipeline_torch
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(sfm_danpipeline_torch.__file__)))
-    for name in scenes:
+    for name, seed in ((n, s) for n in scenes for s in seeds):
         n_views, ring = BASELINE_SCENES[name]
         scene = make_courtyard_scene(n_views=n_views, ring_fraction=ring, seed=0)
+        cfg = PipelineConfig()
+        cfg = dataclasses.replace(cfg, geometry=dataclasses.replace(cfg.geometry, seed=seed))
         runs = []
         for _ in range(repeats):
             torch.cuda.reset_peak_memory_stats()
             times, undo = _timed_parts()
             try:
-                res = SfMPipeline(PipelineConfig(), device="cuda").run(scene.images, scene.intrinsics)
+                res = SfMPipeline(cfg, device="cuda").run(scene.images, scene.intrinsics)
             finally:
                 undo()
             m = res.metrics
@@ -213,7 +231,7 @@ def time_baseline(scenes, repeats):
             ))
             del res
         print(json.dumps({"time_baseline": {
-            "root": root, "scene": name, "n_views": n_views, "n_pairs": n_views * (n_views - 1) // 2,
+            "root": root, "scene": name, "seed": seed, "n_views": n_views, "n_pairs": n_views * (n_views - 1) // 2,
             "median": {k: float(np.median([r[k] for r in runs])) for k in runs[0]},
             "runs": runs,
         }}), flush=True)
@@ -288,6 +306,7 @@ def _max_diff(a, b):
 def pair_batch_audit(device="cuda"):
     from sfm_danpipeline_torch.config import PipelineConfig
     from sfm_danpipeline_torch.ops import epipolar as E
+    from sfm_danpipeline_torch.ops import prng
     from sfm_danpipeline_torch.ops.matching import match_all_pairs
     from sfm_danpipeline_torch.ops.projection import undistort_points
     from sfm_danpipeline_torch.ops.ransac import gather_rows, sample_indices
@@ -307,7 +326,7 @@ def pair_batch_audit(device="cuda"):
     x1 = undistort_points(kp.xy[pi.long()[:, None], m.idx_a.long()], K, dist)
     x2 = undistort_points(kp.xy[pj.long()[:, None], m.idx_b.long()], K, dist)
     valid = m.valid
-    idx = sample_indices(torch.Generator(device=device).manual_seed(0), valid, 512, 8)
+    idx = sample_indices(prng.split(prng.key(0, device=device), len(pi)), valid, 512, 8)
     rn2 = (2.5 / float(K[0, 0])) ** 2
     out = {}
 
@@ -410,6 +429,133 @@ def determinism_audit():
     return 1 if stopped else 0
 
 
+def _front_end(scene, cfg, device):
+    """The port's SIFT keypoints and loose matches (kNN or flow, as `cfg`
+    says) on `device` for every pair of `scene`."""
+    from sfm_danpipeline_torch.ops.flow import flow_match_all_pairs
+    from sfm_danpipeline_torch.ops.matching import match_all_pairs
+    from sfm_danpipeline_torch.ops.sift import detect_and_compute_batch
+
+    gray = torch.as_tensor(scene.images.gray, device=device)
+    kp = detect_and_compute_batch(gray, cfg.features)
+    V = kp.valid.shape[0]
+    pi, pj = (torch.as_tensor(a, dtype=torch.int32, device=device) for a in np.triu_indices(V, 1))
+    if cfg.matching.method == "flow":
+        m = flow_match_all_pairs(
+            gray, kp.xy, kp.valid, pi.tolist(), pj.tolist(), radius=cfg.matching.flow_radius,
+            max_matches=cfg.matching.max_matches,
+        )
+    else:
+        m = match_all_pairs(
+            kp.descriptors, kp.valid, pi, pj,
+            ratio=max(cfg.matching.ratio, cfg.matching.registration_ratio),
+            max_matches=cfg.matching.max_matches, strict_ratio=cfg.matching.ratio, xy=kp.xy,
+            dup_radius=cfg.matching.dup_radius, dedup=cfg.matching.dedup_matches,
+        )
+    return kp, m, pi.long(), pj.long()
+
+
+def eigh_audit():
+    """How far the 8-point fits' null vectors (the smallest eigenvector of
+    each hypothesis' A^T A, as ops/epipolar.py builds it) lie from a float64
+    eigh of the same matrices, for the card's and the CPU's float32 eigh, on
+    the pipeline's seed-0 scoring draws of the V=10 control (SIFT) and the
+    narrow flow arc."""
+    from sfm_danpipeline_torch.ops import epipolar as E
+    from sfm_danpipeline_torch.ops import prng
+    from sfm_danpipeline_torch.ops.projection import undistort_points
+    from sfm_danpipeline_torch.ops.ransac import gather_rows, linalg_in_slices, sample_indices
+    from sfm_danpipeline_torch.ops.reduce import fixed_sum
+
+    for name, ring, matcher in (("sift V=10", 0.2, "bf"), ("flow V=10", 0.05, "flow")):
+        scene = _scene(ring)
+        cfg = _config("sift", matcher)
+        kp, m, pi, pj = _front_end(scene, cfg, "cuda")
+        if matcher == "bf":
+            m = m.at_ratio(cfg.matching.ratio)
+        K = torch.as_tensor(scene.intrinsics.K, dtype=torch.float32, device="cuda")
+        dist = torch.zeros(5, device="cuda")
+        x1 = undistort_points(kp.xy[pi[:, None], m.idx_a.long()], K, dist)
+        x2 = undistort_points(kp.xy[pj[:, None], m.idx_b.long()], K, dist)
+        k_score = prng.split(prng.key(0, device="cuda"), 2)[0]
+        k_e = prng.split(prng.split(k_score, len(pi)), 2)[:, 0]
+        idx = sample_indices(k_e, m.valid, cfg.geometry.essential_ransac_iters, 8)
+        s1, s2 = gather_rows(x1, idx), gather_rows(x2, idx)
+        w = torch.ones(idx.shape, device="cuda")
+        n1, _ = E._hartley_transform(s1, w)
+        n2, _ = E._hartley_transform(s2, w)
+        u1, v1, u2, v2 = n1[..., 0], n1[..., 1], n2[..., 0], n2[..., 1]
+        A = torch.stack([u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1, torch.ones_like(u1)], dim=-2)
+        M = fixed_sum(A[..., :, None, :] * A[..., None, :, :]).reshape(-1, 9, 9)
+        ok = m.valid.sum(-1)[:, None].expand(idx.shape[:2]).reshape(-1) >= 8
+        M = M[ok]
+        ref = torch.linalg.eigh(M.cpu().double())[1][..., 0]
+        row = {}
+        for dev in ("cuda", "cpu"):
+            v = linalg_in_slices(torch.linalg.eigh, M.to(dev))[1][..., 0].cpu().double()
+            err = 1.0 - torch.abs(torch.sum(v * ref, dim=-1))
+            row[dev] = {
+                "median": float(err.median()), "p90": float(err.quantile(0.9)),
+                "max": float(err.max()), "frac_over_1e-3": float((err > 1e-3).double().mean()),
+            }
+        print(json.dumps({"eigh_audit": {"scene": name, "n_matrices": int(M.shape[0]), **row}}), flush=True)
+    return 0
+
+
+def flow_frontend(seeds):
+    """The flow arc's front end on the card against the CPU's (keypoint
+    counts and positions, each pair's match set and slot order), then the
+    pipeline's back end at each seed on the CPU's front end, run on the card
+    and on the CPU: where the two back ends part on the same inputs, and
+    where the card's own front end takes the run elsewhere."""
+    from sfm_danpipeline_torch.pipeline.sfm import SfMPipeline
+
+    scene = _scene(0.05)
+    cfg = _config("sift", "flow")
+    t0 = time.perf_counter()
+    fe = {dev: _front_end(scene, cfg, dev) for dev in ("cuda", "cpu")}
+    print(f"flow front end on the card and on the CPU in {time.perf_counter() - t0:.1f}s", flush=True)
+    kc, mc = fe["cuda"][0], fe["cuda"][1]
+    kh, mh = fe["cpu"][0], fe["cpu"][1]
+    same_kp = bool(torch.equal(kc.valid.cpu(), kh.valid))
+    xy_gap = float((kc.xy.cpu() - kh.xy)[kh.valid].abs().max())
+    same_sets = slots = total = 0
+    for p in range(mh.valid.shape[0]):
+        vc, vh = mc.valid[p].cpu(), mh.valid[p]
+        ac, ah = mc.idx_a[p].cpu()[vc], mh.idx_a[p][vh]
+        same_sets += int(set(ac.tolist()) == set(ah.tolist()))
+        n = min(len(ac), len(ah))
+        slots += int((ac[:n] == ah[:n]).sum())
+        total += len(ah)
+    print(
+        "flow front end, card vs CPU: keypoint masks %s, largest xy gap %.3g px; match sets equal "
+        "in %d of %d pairs; %d of %d valid slots hold the same match"
+        % ("equal" if same_kp else "DIFFER", xy_gap, same_sets, mh.valid.shape[0], slots, total),
+        flush=True,
+    )
+    scene_images = scene.images
+    for seed in seeds:
+        c = dataclasses.replace(cfg, geometry=dataclasses.replace(cfg.geometry, seed=seed))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            kp = type(kh)(*(getattr(kh, f.name).to(dev) for f in dataclasses.fields(kh)))
+            m = type(mh)(*(getattr(mh, f.name).to(dev) for f in dataclasses.fields(mh)))
+            try:
+                res = SfMPipeline(c, device=dev).run(
+                    scene_images, scene.intrinsics, precomputed_keypoints=kp, precomputed_matches=m
+                )
+            except RuntimeError:
+                out[dev] = "no seed pair"
+                continue
+            mm = res.metrics
+            out[dev] = "%d/10, pair (%d, %d), RMS %.4f px, ATE %.3f%%" % (
+                mm["n_registered"], mm["baseline_pair_i"], mm["baseline_pair_j"], mm["ba_rms_px"],
+                _ate_pct(scene, res),
+            )
+        print(f"flow seed {seed} on the CPU's front end: card back end {out['cuda']}; CPU back end {out['cpu']}", flush=True)
+    return 0
+
+
 def flow_seeds(seeds, device):
     from sfm_danpipeline_torch.pipeline.sfm import SfMPipeline
 
@@ -446,7 +592,7 @@ def main():
         "mode",
         choices=[
             "time-stages", "time-baseline", "profile", "cli-akaze", "pair-batch-audit",
-            "determinism-audit", "flow-seeds",
+            "determinism-audit", "flow-seeds", "eigh-audit", "flow-frontend",
         ],
     )
     ap.add_argument("--out", default="out/akaze10", help="cli-akaze's output directory")
@@ -455,6 +601,7 @@ def main():
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3, 4, 5])
     ap.add_argument("--scenes", nargs="+", choices=list(BASELINE_SCENES), default=["v10", "v20"])
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--baseline-seeds", type=int, nargs="+", default=[0], help="time-baseline's geometry.seed values")
     args = ap.parse_args()
     on_cpu = args.mode == "flow-seeds" and args.device == "cpu"
     if not on_cpu and not torch.cuda.is_available():
@@ -467,7 +614,7 @@ def main():
     if args.mode == "time-stages":
         return time_stages()
     if args.mode == "time-baseline":
-        return time_baseline(args.scenes, args.repeats)
+        return time_baseline(args.scenes, args.repeats, args.baseline_seeds)
     if args.mode == "profile":
         return profile_runs(args.scenes)
     if args.mode == "cli-akaze":
@@ -476,6 +623,10 @@ def main():
         return pair_batch_audit()
     if args.mode == "determinism-audit":
         return determinism_audit()
+    if args.mode == "eigh-audit":
+        return eigh_audit()
+    if args.mode == "flow-frontend":
+        return flow_frontend(args.seeds)
     return flow_seeds(args.seeds, "cpu" if on_cpu else "cuda")
 
 
