@@ -64,6 +64,14 @@ each printed on its own line; any failure raises and exits non-zero:
      through sample_indices, each drawn on the card and on the CPU from the
      same keys and held equal bit for bit, with each one's time with its
      key on the card and on the host;
+ 16. the 50-view closed ring (1,225 pairs, the default config), the size
+     users run: SfMPipeline.run at the reference's geometry seeds 0-2, each
+     seed's stage times, t_baseline's split, registered views, RMS, points,
+     ATE and rotavg_applied printed beside the reference's CPU numbers and
+     held to the gates the reference meets at that seed; then knn2 at the
+     ring's shape (P = 1,225, D = 128) on the seed-0 run's own descriptors,
+     held against knn2_torch (in slices of pairs) with indices equal on
+     every row the matcher keeps and near-ties elsewhere, and timed;
 
 Phases 4 and 5 also print t_baseline's split: pair scoring, the prefilter,
 the seed bootstrap (`_try_seed`) and the rest, each timed by wrapping the
@@ -75,8 +83,10 @@ processes included), and as the last line the device record
 {"ok": true, "device": {...}}.
 
 Phase 13 runs in a process of its own beside phases 4-7, and the flow runs
-of phase 10 beside phase 12 (the runs are host-bound; no kernel is timed
-while another process runs); their lines are printed when they end.
+of phase 10 and phase 16's runs in two more beside phase 12 (the runs are
+host-bound; no kernel is timed while another process runs); their lines
+are printed when they end. Phase 16's kernel check runs in this
+process after every child has ended.
 
 One-off measurements (stage timings of two commits, the determinism audit,
 the flow path over RANSAC seeds) are in tools/torch_stage_probe.py.
@@ -84,6 +94,7 @@ the flow path over RANSAC seeds) are in tools/torch_stage_probe.py.
 import dataclasses
 import functools
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -152,6 +163,48 @@ REF_GUIDED = {
     "n_registered": 15, "n_guided_registered": 3, "block_realign_applied": None,
     "ba_rms_px": 0.206, "n_points": 1685, "ate_pct": 28.38, "view11_basin_matches": 39,
 }
+# Phase 16: the closed ring make_courtyard_scene(n_views=50,
+# ring_fraction=1.0, seed=0), 480x640, 2,048 SIFT keypoints, the default
+# config, at geometry seeds 0-2. The reference's SfMPipeline on this scene
+# at each seed (`JAX_PLATFORMS=cpu python3 tools/seed_parity.py ring
+# --package reference --seeds S`, CPU runs, XLA's default threads):
+# registered views, final BA RMS, points, ATE in % of the diameter,
+# rotavg_applied and the registration keys taken. Which secondary component
+# merges, and so which views register, follows float32 rounding on this
+# ring, in the reference too: with XLA's CPU threads at one, the reference
+# ends seeds 0 and 2 at 5,223 and 4,992 points, RMS 0.1855 and 0.1851 px,
+# ATE 0.1228% and 0.1218%, and seed 1 at 6,619 points, RMS 0.6535 px, ATE
+# 20.77% (PERF.md section 4).
+RING_VIEWS, RING_SEEDS = 50, (0, 1, 2)
+REF_RING = {
+    0: {"registered": list(range(11, 43)), "ba_rms_px": 0.1844, "n_points": 5222,
+        "ate_pct": 0.1213, "rotavg_applied": 0.0, "key_n": 193},
+    # The ring closes on a wrong trajectory in the reference at seed 1.
+    1: {"registered": list(range(0, 14)) + list(range(15, 43)) + [49], "ba_rms_px": 0.1855,
+        "n_points": 6172, "ate_pct": 18.2675, "rotavg_applied": None, "key_n": 199},
+    2: {"registered": list(range(11, 22)) + list(range(23, 43)), "ba_rms_px": 0.1856,
+        "n_points": 4993, "ate_pct": 0.1252, "rotavg_applied": 0.0, "key_n": 152},
+}
+# Each gate the reference meets at a seed holds the port there: the same
+# number of registered views, RMS < 1 px, points within RING_POINTS_RTOL of
+# the reference's, ATE < 1%. A seed where the two part by float rounding
+# (its witness in ROADMAP Queue 3, "V=50 ring") is printed as such and held
+# to RMS and to at least RING_CORE_MIN of the core views RING_CORE: the
+# views 11-42 between the seed pair's component and component (2, 3), of
+# which every run of either package (CPU or card, its own front end or the
+# reference's, XLA's default threads or one) registered 30-32 at each seed
+# (PERF.md section 4); which of the other views join follows whether
+# component (2, 3) merges, and that flips on rounding. Seed 1's witness: the
+# reference merges component (2, 3) there and closes the ring on a wrong
+# trajectory (43 views, ATE 18.3%), the port on the card drops it and ends
+# on a wrong trajectory too (31 views, ATE 19.1%), and the port's merge step
+# fed the reference's inputs to it merges as the reference's does
+# (`tools/seed_parity.py merge-step --seed 1`).
+RING_ROUNDING_SEEDS = {1: "a wrong trajectory in the reference too"}
+RING_CORE, RING_CORE_MIN = range(11, 43), 30
+RING_POINTS_RTOL = 0.01
+RING_KEYPOINTS = "ring_keypoints.pt"
+RING_DECISIONS = ("seed (", "merging", "component", "straggler", "global reinit", "rotavg")
 # Phase 12: the multi-process run's scene and the polish threshold that
 # forces the observation-sharded polish at this size.
 MH_VIEWS, MH_RING = 10, 0.2
@@ -160,7 +213,7 @@ MH_TIMEOUT_S = 420
 # Phases run in a process of their own beside the main sequence, with the
 # most each may take: the pipeline runs are host-bound (the card idles > 90%
 # of a run), so two of them side by side end in about the time of one.
-CHILD_TIMEOUT_S = {"guided": 600, "flow": 600}
+CHILD_TIMEOUT_S = {"guided": 600, "flow": 600, "ring": 900}
 # Phase 14: the batched pair calls against the one-pair calls on the same
 # draws (tests/test_torch_pairs.py's bound).
 PAIR_BATCH_RT_ATOL = 1e-6
@@ -209,11 +262,16 @@ def knn2_bound(n_views, n_pairs, k, d):
     }
 
 
-def check_knn2_case(name, case, exact_idx=False, timed=False):
-    """One input set through the kernel and through knn2_torch on the card,
-    held to KNN2_RTOL / KNN2_ATOL / KNN2_TIE (or to equal indices). Prints
-    one line; returns the numbers of the kernels line when `timed`."""
-    from sfm_danpipeline_torch.ops.matching import _launch_knn2, knn2, knn2_torch
+def check_knn2_case(name, case, exact_idx=False, timed=False, kept_ratio=None):
+    """One input set through the kernel and through its plain version on the
+    card (knn2_torch in slices of pairs, knn2_torch_sliced: the ring's
+    1,225 pairs at once would hold 20.6 GB of distances), held to
+    KNN2_RTOL / KNN2_ATOL / KNN2_TIE (or to equal indices). Prints one
+    line; returns the numbers of the kernels line when `timed`. With
+    `kept_ratio` the indices must be equal on every row the matcher keeps at
+    that Lowe ratio in either result (a valid A row with a second best and
+    d1 <= ratio * d2): elsewhere the index is never read."""
+    from sfm_danpipeline_torch.ops.matching import _launch_knn2, knn2, knn2_torch_sliced
     from sfm_danpipeline_torch.utils.knn_cases import compare_knn2, to_tensors
 
     desc, valid, xy, pi, pj = to_tensors(case, "cuda")
@@ -221,7 +279,7 @@ def check_knn2_case(name, case, exact_idx=False, timed=False):
     n, k, d = desc.shape
 
     def plain():
-        return knn2_torch(desc[pil], desc[pjl], valid[pjl], xy[pjl], case.dup_r2)
+        return knn2_torch_sliced(desc, valid, xy, pi, pj, case.dup_r2)
 
     def kernel():
         return knn2(desc, valid, xy, pi, pj, case.dup_r2)
@@ -229,8 +287,9 @@ def check_knn2_case(name, case, exact_idx=False, timed=False):
     got = kernel()
     torch.cuda.synchronize()  # a fault during the run surfaces here
     flagged = int(knn2.last_flagged)
+    ref = plain()
     n_mism, max_err = compare_knn2(
-        got, plain(), desc, valid, pi, pj,
+        got, ref, desc, valid, pi, pj,
         rtol=KNN2_RTOL, atol=KNN2_ATOL, tie=KNN2_TIE, exact_idx=exact_idx,
     )
     line = (
@@ -239,6 +298,22 @@ def check_knn2_case(name, case, exact_idx=False, timed=False):
         f"max |d2 err| {max_err:.3e} (rtol {KNN2_RTOL}, atol {KNN2_ATOL}); "
         f"second sweep took {flagged} of {pi.numel() * k} rows"
     )
+    if kept_ratio is not None:
+        valid_a = valid[pil]
+
+        def kept(r):
+            return valid_a & (r[2] < 3.4e38) & (r[1].sqrt() <= kept_ratio * r[2].sqrt())
+
+        rows = kept(got) | kept(ref)
+        mism = got[0] != ref[0]
+        n_kept = int((mism & rows).sum())
+        line += (
+            f"; of the mismatches {int((mism & ~valid_a).sum())} on invalid A rows, "
+            f"{n_kept} on the {int(rows.sum())} rows the matcher keeps at ratio {kept_ratio} "
+            "(none allowed)"
+        )
+        _require(n_kept == 0, f"knn2 {name}: {n_kept} index mismatches on rows the matcher keeps")
+    del ref
     row = {"max_abs_err": max_err, "flagged_rows": flagged}
     if timed:
         bound = knn2_bound(n, pi.numel(), k, d)
@@ -249,7 +324,7 @@ def check_knn2_case(name, case, exact_idx=False, timed=False):
         ms_p = _median_ms(plain)
         line += (
             f"; median wrapper {ms:.3f} ms (launch alone {ms_l:.3f} ms), "
-            f"knn2_torch {ms_p:.3f} ms, bound "
+            f"knn2_torch_sliced {ms_p:.3f} ms, bound "
             f"{bound['bound_ms']:.3f} ms by {bound['bound_by']} ({bound['gflop']:.2f} GFLOP, "
             f"{bound['mbytes']:.1f} MB), share of bound {100 * bound['bound_ms'] / ms:.1f}% "
             f"(launch alone {100 * bound['bound_ms'] / ms_l:.1f}%)"
@@ -1174,8 +1249,6 @@ def run_guided():
     from sfm_danpipeline_torch.config import PipelineConfig
     from sfm_danpipeline_torch.pipeline.sfm import SfMPipeline
 
-    import logging
-
     scene = courtyard(20, 0.4)
     cfg = PipelineConfig()
     cfg = dataclasses.replace(cfg, geometry=dataclasses.replace(cfg.geometry, guided_enable=True))
@@ -1227,10 +1300,124 @@ def run_guided():
     return launches
 
 
-def _phase_child(name):
+def run_ring(logdir):
+    """Phase 16: SfMPipeline.run on the 50-view ring at each seed of
+    RING_SEEDS, beside the reference's numbers, held to the gates the
+    reference meets at that seed; every seed runs before the gates are
+    read. Saves the seed-0 run's keypoints under `logdir` for the kernel
+    check."""
+    from sfm_danpipeline_torch.config import PipelineConfig
+    from sfm_danpipeline_torch.pipeline.sfm import SfMPipeline
+
+    scene = courtyard(RING_VIEWS, 1.0)
+    base = PipelineConfig()
+    launches, failed = {"knn2": 0}, []
+    # The pipeline's decisions: the merges and the reinit are printed, the
+    # few hundred PnP failures of a ring run only counted.
+    trail = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = lambda rec: trail.append(rec.getMessage())
+    logger = logging.getLogger("sfm_danpipeline_torch")
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    for seed in RING_SEEDS:
+        cfg = dataclasses.replace(base, geometry=dataclasses.replace(base.geometry, seed=seed))
+        pipe = SfMPipeline(cfg, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        trail.clear()
+        with _BaselineSplit() as timer:
+            res, la = _count_launches(lambda: pipe.run(scene.images, scene.intrinsics))
+        launches["knn2"] += la["knn2"]
+        if seed == RING_SEEDS[0]:
+            kp = res.keypoints
+            torch.save(
+                {f: getattr(kp, f).cpu() for f in ("descriptors", "valid", "xy")},
+                os.path.join(logdir, RING_KEYPOINTS),
+            )
+        m, regs, ref = res.metrics, res.registered_views, REF_RING[seed]
+        ate = 100 * ate_fraction(scene, res.state.cameras.cpu().numpy(), regs)
+        tag = f"ring V={RING_VIEWS} seed {seed}"
+        decisions = [t for t in trail if t.startswith(RING_DECISIONS)]
+        n_failed = sum("PnP failed" in t for t in trail)
+        print(f"{tag} decisions ({n_failed} PnP failures not shown):")
+        print("".join(f"  {t}\n" for t in decisions), end="")
+        stages = {k: round(v, 3) for k, v in m.items() if k.startswith("t_")}
+        print(f"{tag} stages (s): {json.dumps(stages)}")
+        split = timer.split(m["t_baseline"])
+        print(
+            "%s t_baseline %.3f s: pair scoring %.3f s, prefilter %.3f s, seed bootstrap "
+            "(_try_seed) %.3f s, rest %.3f s (%d pairs); peak card memory %.2f GiB"
+            % (tag, m["t_baseline"], split["scoring"], split["prefilter"], split["seed"],
+               split["rest"], m["n_pairs"], torch.cuda.max_memory_allocated() / 2**30)
+        )
+        print(
+            "%s: port (card) %d/%d registered %s, RMS %.4f px, %d points, ATE %.4f%%, "
+            "rotavg_applied %s, %d registration keys, knn2 launches %d; reference (JAX, CPU) %d/%d "
+            "registered %s, RMS %.4f px, %d points, ATE %.4f%%, rotavg_applied %s, %d keys"
+            % (
+                tag, len(regs), RING_VIEWS, regs, m["ba_rms_px"], m["n_points"], ate,
+                m.get("rotavg_applied"), pipe._key_n, la["knn2"], len(ref["registered"]), RING_VIEWS,
+                ref["registered"], ref["ba_rms_px"], ref["n_points"], ref["ate_pct"],
+                ref["rotavg_applied"], ref["key_n"],
+            )
+        )
+        if seed in RING_ROUNDING_SEEDS:
+            core = len(set(regs) & set(RING_CORE))
+            count = (core >= RING_CORE_MIN, f"registered {core} of the core views "
+                     f"{RING_CORE.start}-{RING_CORE.stop - 1}, fewer than {RING_CORE_MIN}")
+        else:
+            count = (len(regs) == len(ref["registered"]),
+                     f"registered {len(regs)}, the reference {len(ref['registered'])}")
+        gates = [
+            count,
+            (la["knn2"] == 1, f"knn2 launched {la['knn2']} times, not once"),
+            (np.isfinite(res.points).all() and len(res.points) > 0, "bad sparse cloud"),
+        ]
+        if ref["ba_rms_px"] < 1.0:
+            gates.append((m["ba_rms_px"] < 1.0, f"BA RMS {m['ba_rms_px']} px >= 1"))
+        if seed in RING_ROUNDING_SEEDS:
+            print(
+                f"{tag}: parts from the reference by float rounding ({RING_ROUNDING_SEEDS[seed]}; "
+                f"ROADMAP Queue 3, V=50 ring): held to RMS and to at least {RING_CORE_MIN} of the "
+                f"core views {RING_CORE.start}-{RING_CORE.stop - 1} only ({core} registered)"
+            )
+        else:
+            gates.append((
+                abs(m["n_points"] - ref["n_points"]) <= RING_POINTS_RTOL * ref["n_points"],
+                f"{m['n_points']} points, not within {RING_POINTS_RTOL:.0%} of {ref['n_points']}",
+            ))
+            if ref["ate_pct"] < 1.0:
+                gates.append((ate < 1.0, f"ATE {ate:.4f}% >= 1%"))
+        failed += [f"{tag}: {msg}" for ok, msg in gates if not ok]
+    logger.removeHandler(handler)
+    _require(not failed, "; ".join(failed))
+    return launches
+
+
+def check_knn2_ring(logdir):
+    """Phase 16's kernel check: knn2 at the ring's shape on the seed-0
+    run's own descriptors, every pair, indices held equal on every row the
+    matcher keeps and elsewhere to near-ties; timed."""
+    from sfm_danpipeline_torch.utils.knn_cases import KnnCase
+
+    kp = torch.load(os.path.join(logdir, RING_KEYPOINTS))
+    pi, pj = np.triu_indices(RING_VIEWS, 1)
+    case = KnnCase(
+        kp["descriptors"].numpy(), kp["valid"].numpy(), kp["xy"].numpy(),
+        pi.astype(np.int32), pj.astype(np.int32), _cli_config("sift").matching.dup_radius**2,
+    )
+    m = _cli_config("sift").matching
+    return check_knn2_case(
+        f"ring V={RING_VIEWS} run's descriptors", case, timed=True,
+        kept_ratio=max(m.ratio, m.registration_ratio),
+    )
+
+
+def _phase_child(name, logdir):
     """Entry of a child process: run one phase, then print its launch counts
     on a marked line for the parent."""
-    launches = {"guided": run_guided, "flow": run_flow_seeds}[name]()
+    phases = {"guided": run_guided, "flow": run_flow_seeds, "ring": lambda: run_ring(logdir)}
+    launches = phases[name]()
     print(CHILD_MARK + json.dumps(launches), flush=True)
 
 
@@ -1240,7 +1427,7 @@ def _start_phase(name, logdir):
     here = os.path.dirname(os.path.abspath(__file__))
     out = open(os.path.join(logdir, f"{name}.log"), "w+")
     proc = subprocess.Popen(
-        [sys.executable, "-c", f"import chip_smoke; chip_smoke._phase_child({name!r})"],
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke._phase_child({name!r}, {logdir!r})"],
         stdout=out, stderr=subprocess.STDOUT, cwd=here,
         env=dict(os.environ, PYTHONPATH=here),
     )
@@ -1304,9 +1491,9 @@ def main():
     print("".join(f"  {line}\n" for line in kernels.ptxas_report("knn2")), end="")
     knn2_row = check_knn2()
     launches = {}
-    # Phase 13 runs beside phases 4-7 and the flow runs of phase 10 beside
-    # phase 12, each in a process of its own; no kernel is timed while
-    # a child runs.
+    # Phase 13 runs beside phases 4-7, and the flow runs of phase 10 and
+    # phase 16 beside phase 12, each in a process of its own; no kernel is
+    # timed while a child runs.
     children = []
     with tempfile.TemporaryDirectory() as logdir:
         try:
@@ -1327,13 +1514,17 @@ def main():
             row256 = check_knn2_on_run("ORB run's descriptors", res_orb, cfg_orb)
             l11 = check_sharding(scene10, res10, _cli_config("sift"))
             children.append(_start_phase("flow", logdir))
+            ring = _start_phase("ring", logdir)
+            children.append(ring)
             with tempfile.TemporaryDirectory() as workdir:
                 l12 = run_two_ranks(workdir, res10.metrics["t_total"])
-            l10b = _join_phase(children[-1])
+            l10b = _join_phase(children[-2])
+            l16 = _join_phase(ring)
+            row_ring = check_knn2_ring(logdir)
         finally:
             for child in children:  # a failed phase must not leave a child running
                 _stop(child)
-    for part in (l4, l5, l6, l8, l9, l10a, l10b, l11, l12, l13):
+    for part in (l4, l5, l6, l8, l9, l10a, l10b, l11, l12, l13, l16):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
     print(f"chip_smoke: all phases in {time.time() - t_script:.0f}s")
@@ -1348,6 +1539,8 @@ def main():
         "real_descriptor_shapes": [
             {"detector": "akaze", "d": 512, **row512}, {"detector": "orb", "d": 256, **row256},
         ],
+        # The 50-view ring's matching call (phase 16), P = 1,225 at D = 128.
+        "ring_shape": {"pairs": RING_VIEWS * (RING_VIEWS - 1) // 2, "d": D, **row_ring},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -22,6 +22,11 @@ from sfm_danpipeline_torch import kernels
 from sfm_danpipeline_torch.ops.select import top_k_indices
 
 _INF = 3.4e38
+# knn2_torch_sliced (knn2's CPU path) runs knn2_torch over slices of the pair
+# list, each holding at most this many bytes of float32 distances: all 1,225 pairs of a 50-view
+# set at once would hold 1,225 x 2048^2 distances (20.6 GB) and several
+# temporaries of that size.
+CPU_SLICE_BYTES = 1 << 28
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,6 +151,19 @@ def _launch_knn2(descriptors, valid, xy, pair_i, pair_j, dup_r2):
     return idx, best, second
 
 
+def knn2_torch_sliced(descriptors, valid, xy, pair_i, pair_j, dup_r2=-1.0):
+    """`knn2_torch` over the listed pairs (knn2's arguments), in slices of
+    the pair list that each hold at most CPU_SLICE_BYTES of distances; equal
+    bit for bit to one call over every pair."""
+    K = descriptors.shape[1]
+    step = max(1, CPU_SLICE_BYTES // (4 * K * K))
+    parts = [
+        knn2_torch(descriptors[a], descriptors[b], valid[b], xy[b], dup_r2)
+        for a, b in zip(pair_i.long().split(step), pair_j.long().split(step))
+    ]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
 def knn2(
     descriptors: torch.Tensor,
     valid: torch.Tensor,
@@ -160,7 +178,7 @@ def knn2(
     Returns (best_idx (P, K) int32, best_d2 (P, K), second_d2 (P, K)).
 
     CUDA tensors run the hand-written kernel (csrc/knn2.cu) or raise; CPU
-    tensors run `knn2_torch`. `knn2.launches` counts kernel launches;
+    tensors run `knn2_torch_sliced`. `knn2.launches` counts kernel launches;
     `knn2.last_flagged` is the last launch's (1,) int32 device tensor with the
     number of rows whose second-best needed the kernel's exact second sweep."""
     if descriptors.dim() != 3 or descriptors.dtype != torch.float32:
@@ -185,10 +203,7 @@ def knn2(
             raise ValueError("pair index out of range")
     device = descriptors.device
     if device.type == "cpu":
-        pi, pj = pair_i.long(), pair_j.long()
-        return knn2_torch(
-            descriptors[pi], descriptors[pj], valid[pj], xy[pj], dup_r2
-        )
+        return knn2_torch_sliced(descriptors, valid, xy, pair_i, pair_j, dup_r2)
     if device.type != "cuda":
         raise ValueError(f"knn2 runs on cuda or cpu tensors, not {device}")
     if not all(t.is_contiguous() for t in tensors):
