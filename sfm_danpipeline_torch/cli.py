@@ -16,6 +16,20 @@ defaults, stage order, gauge guards and exit codes, on the CUDA card unless
 stages on in-memory images, so a caller without image files (or without
 PIL) can drive every stage.
 
+metrics.jsonl gets one JSON record per line, each with its "stage" and a
+"ts": one per stage run (that stage's metrics), "timing" (each stage's
+wall seconds as t_<stage>) and, after the sfm stage, "trace": the run's
+trace from inside `SfMPipeline.run` (utils/profiling.py). Its "spans" are
+{run, index, parent, name, start_ns, end_ns, attrs}, nested by "parent"
+(-1 for the root "set"), on the wall clock of `time.time_ns()`: the stages
+(features, matching, baseline, incremental, components, final_ba) and the
+steps under them (baseline.score, seed, seed.basin, pnp, triangulate, ba,
+merge). Its "counters" count seed basins tried and accepted
+(seed_basins, seed_basins_accepted), seeds validated by a third view
+(seeds_validated), PnP attempts and failures (pnp_attempts, pnp_failed),
+BA solves and their LM iterations (ba_solves, lm_iterations) and Sim(3)
+merge attempts and acceptances (merge_attempts, merges_accepted).
+
 Multi-process mode: launch one process per rank with the same arguments plus
 `--coordinator HOST:PORT --num-processes N --process-id I`. Each process
 joins the job (parallel/distributed.initialize, before anything touches the
@@ -234,6 +248,8 @@ def _run_stages(
         state = res.state
         points, colors = res.points, res.colors
         emit("sfm", res.metrics)
+        if res.trace is not None:  # a rank that ran no SfMPipeline.run has none
+            emit("trace", res.trace)
         write_ply(os.path.join(output, "sparse.ply"), points, colors)
         if viz:
             from sfm_danpipeline_torch.utils import viz as vz

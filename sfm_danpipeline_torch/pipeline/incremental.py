@@ -30,6 +30,7 @@ from sfm_danpipeline_torch.pipeline.tracks import (
     find_2d3d,
     live_observations,
 )
+from sfm_danpipeline_torch.utils import profiling
 
 
 def epipolar_filter_matches(
@@ -226,12 +227,13 @@ def triangulate_new_view_all(
 ) -> Tuple[ReconstructionState, torch.Tensor]:
     """Triangulate the new view against every done view, in order."""
     total = torch.zeros((), dtype=torch.int64, device=state.device)
-    for d in done_views:
-        state, n = triangulate_new_view(
-            state, new_view, int(d), feat_tab_a[new_view, d], feat_tab_b[new_view, d],
-            valid_tab[new_view, d], keypoints_xy, colors, K, dist, config,
-        )
-        total = total + n
+    with profiling.span("triangulate", done_views=len(done_views)):
+        for d in done_views:
+            state, n = triangulate_new_view(
+                state, new_view, int(d), feat_tab_a[new_view, d], feat_tab_b[new_view, d],
+                valid_tab[new_view, d], keypoints_xy, colors, K, dist, config,
+            )
+            total = total + n
     return state, total
 
 
@@ -254,11 +256,15 @@ def register_and_triangulate(
     """PnP registration and, when it succeeds, triangulation against every
     done view (strict table). Returns (state, (ok, n_inliers, n_support,
     n_points, n_obs)) as host ints."""
-    state, ok, n_inl, n_support = register_view(
-        key, state, new_view, done_views, feat_tab_a, feat_tab_b, valid_tab_loose,
-        keypoints_xy, K, dist, image_max_dim, config, valid_tab_strict=valid_tab_strict,
-    )
-    ok = bool(ok)
+    profiling.count("pnp_attempts")
+    with profiling.span("pnp", view=new_view, done_views=len(done_views)) as sp:
+        state, ok, n_inl, n_support = register_view(
+            key, state, new_view, done_views, feat_tab_a, feat_tab_b, valid_tab_loose,
+            keypoints_xy, K, dist, image_max_dim, config, valid_tab_strict=valid_tab_strict,
+        )
+        ok = bool(ok)
+    profiling.annotate(sp, ok=ok)
+    profiling.count("pnp_failed", int(not ok))
     if ok:
         state, _ = triangulate_new_view_all(
             state, new_view, done_views, feat_tab_a, feat_tab_b, valid_tab_strict,

@@ -92,6 +92,7 @@ from sfm_danpipeline_torch.pipeline.tracks import (
     prune_observations,
     retriangulate_points,
 )
+from sfm_danpipeline_torch.utils import profiling
 from sfm_danpipeline_torch.utils.checkpoint import load_state, save_state
 
 log = logging.getLogger("sfm_danpipeline_torch")
@@ -147,17 +148,24 @@ def ba_step(
         obs_cam=obs_cam, obs_pt=obs_pt, obs_xy=xy, obs_w=w, fix_cam=fix_cam_eff,
         fix_focal=torch.tensor(not ba_cfg.optimize_focal, device=pp.device),
     )
-    if shard_devices is None:
-        res = run_ba(prob, ba_cfg, max_iterations=max_iterations)
-    else:
-        res = run_ba_sharded(prob, ba_cfg, shard_devices, max_iterations=max_iterations)
-    points = state.points_xyz.clone()
-    points[:B] = res.points
-    state = dataclasses.replace(state, cameras=res.cameras, focal=res.focal, points_xyz=points)
-    state = prune_observations(
-        state, keypoints_xy, _k_matrix(state.focal, pp),
-        max_error_px=config.geometry.max_reprojection_error_px,
-    )
+    with profiling.span(
+        "ba", points=B, max_iterations=int(max_iterations), local=local_view is not None,
+        sharded=shard_devices is not None,
+    ) as sp:
+        if shard_devices is None:
+            res = run_ba(prob, ba_cfg, max_iterations=max_iterations)
+        else:
+            res = run_ba_sharded(prob, ba_cfg, shard_devices, max_iterations=max_iterations)
+        points = state.points_xyz.clone()
+        points[:B] = res.points
+        state = dataclasses.replace(state, cameras=res.cameras, focal=res.focal, points_xyz=points)
+        state = prune_observations(
+            state, keypoints_xy, _k_matrix(state.focal, pp),
+            max_error_px=config.geometry.max_reprojection_error_px,
+        )
+    profiling.annotate(sp, iterations=res.iterations)
+    profiling.count("ba_solves")
+    profiling.count("lm_iterations", res.iterations)
     return state, res.initial_cost, res.final_cost, res.iterations, torch.sum(w)
 
 
@@ -231,52 +239,56 @@ def merge_attempt_step(
 
     Returns (state, stats) with stats = {accepted, sim_ok, n_sim_inliers,
     med_gate1_px, med_gate2_px, n_cross_tracks, scale}."""
-    ft_a, ft_b, vt_strict = tables[:3]
-    V = state_a.n_views
-    bound = config.geometry.max_merge_reprojection_px
-    K_cur = _k_matrix(state_a.focal, pp)
-    b_mask = torch.zeros((V,), dtype=torch.bool, device=pp.device)
-    b_mask[list(b_views)] = True
-    Xa, Xb, pid_a, pid_b, va, fa, m = cross_component_pairs(
-        state_a, state_b, ft_a, ft_b, vt_strict
-    )
-    sim = estimate_sim3_reproj_ransac(
-        key, Xb, Xa, state_a.cameras[va], keypoints_xy[va, fa], K_cur, m,
-        threshold_px=0.75 * bound, n_hypotheses=16384, min_inliers=8,
-        samples=samples,
-    )
+    profiling.count("merge_attempts")
+    with profiling.span("merge") as sp:
+        ft_a, ft_b, vt_strict = tables[:3]
+        V = state_a.n_views
+        bound = config.geometry.max_merge_reprojection_px
+        K_cur = _k_matrix(state_a.focal, pp)
+        b_mask = torch.zeros((V,), dtype=torch.bool, device=pp.device)
+        b_mask[list(b_views)] = True
+        Xa, Xb, pid_a, pid_b, va, fa, m = cross_component_pairs(
+            state_a, state_b, ft_a, ft_b, vt_strict
+        )
+        sim = estimate_sim3_reproj_ransac(
+            key, Xb, Xa, state_a.cameras[va], keypoints_xy[va, fa], K_cur, m,
+            threshold_px=0.75 * bound, n_hypotheses=16384, min_inliers=8,
+            samples=samples,
+        )
 
-    def cross_med(st):
-        has_obs = st.track_feat >= 0
-        seen_b = torch.any(has_obs & b_mask[None, :], dim=1)
-        seen_a = torch.any(has_obs & (~b_mask & st.camera_valid)[None, :], dim=1)
-        cross = seen_a & seen_b & st.points_valid
-        med = views_reprojection_median(st, b_mask, keypoints_xy, K_cur, points_mask=cross)
-        return med, int(torch.sum(cross))
+        def cross_med(st):
+            has_obs = st.track_feat >= 0
+            seen_b = torch.any(has_obs & b_mask[None, :], dim=1)
+            seen_a = torch.any(has_obs & (~b_mask & st.camera_valid)[None, :], dim=1)
+            cross = seen_a & seen_b & st.points_valid
+            med = views_reprojection_median(st, b_mask, keypoints_xy, K_cur, points_mask=cross)
+            return med, int(torch.sum(cross))
 
-    sim_ok = bool(sim.ok)
-    med1 = med2 = float("inf")
-    n_cross = 0
-    cand = state_a
-    if sim_ok:
-        cand = merge_components(state_a, state_b, sim.sim, pid_a, pid_b, sim.inliers)
-        med1, _ = cross_med(cand)
-        if med1 <= bound:
-            for v in sorted(b_views):
-                cand, _ = triangulate_new_view_all(
-                    cand, v, a_views, ft_a, ft_b, vt_strict, keypoints_xy, colors,
-                    K, dist, config,
-                )
-            cand = ba_step(
-                cand, keypoints_xy, pp, fix_cam, config, config.ba.intermediate_iterations
-            )[0]
-            med2, n_cross = cross_med(cand)
-    accepted = sim_ok and med1 <= bound and med2 <= 0.5 * bound
-    stats = dict(
-        accepted=accepted, sim_ok=sim_ok, n_sim_inliers=int(sim.n_inliers),
-        med_gate1_px=med1, med_gate2_px=med2, n_cross_tracks=n_cross,
-        scale=float(sim.sim.s),
-    )
+        sim_ok = bool(sim.ok)
+        med1 = med2 = float("inf")
+        n_cross = 0
+        cand = state_a
+        if sim_ok:
+            cand = merge_components(state_a, state_b, sim.sim, pid_a, pid_b, sim.inliers)
+            med1, _ = cross_med(cand)
+            if med1 <= bound:
+                for v in sorted(b_views):
+                    cand, _ = triangulate_new_view_all(
+                        cand, v, a_views, ft_a, ft_b, vt_strict, keypoints_xy, colors,
+                        K, dist, config,
+                    )
+                cand = ba_step(
+                    cand, keypoints_xy, pp, fix_cam, config, config.ba.intermediate_iterations
+                )[0]
+                med2, n_cross = cross_med(cand)
+        accepted = sim_ok and med1 <= bound and med2 <= 0.5 * bound
+        stats = dict(
+            accepted=accepted, sim_ok=sim_ok, n_sim_inliers=int(sim.n_inliers),
+            med_gate1_px=med1, med_gate2_px=med2, n_cross_tracks=n_cross,
+            scale=float(sim.sim.s),
+        )
+    profiling.annotate(sp, n_sim_inliers=stats["n_sim_inliers"], accepted=accepted)
+    profiling.count("merges_accepted", int(accepted))
     return (cand if accepted else state_a), stats
 
 
@@ -292,6 +304,8 @@ class SfMResult:
     baseline_matches: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
     # Raw detected keypoint positions when distortion canonicalized them.
     raw_xy: Optional[np.ndarray] = None
+    # The run's trace (utils/profiling.py StageTimer.trace): spans, counters.
+    trace: Optional[dict] = None
 
 
 def _keypoint_colors(color: torch.Tensor, kp: Keypoints) -> torch.Tensor:
@@ -429,7 +443,28 @@ class SfMPipeline:
         the loose-ratio PairMatches over `_pair_list(V)` order.
         `precomputed_canonical=True` states that the keypoints' xy are already
         ideal pinhole pixels (the caller undistorted them), so they are not
-        undistorted again; `precomputed_raw_xy` carries the raw detections."""
+        undistorted again; `precomputed_raw_xy` carries the raw detections.
+
+        The run is traced (utils/profiling.py): a root span "set", the stage
+        spans "features", "matching", "baseline", "incremental",
+        "components" and "final_ba" (each ended after a synchronize; the
+        `t_*` metrics are their durations), and the spans and counters of
+        the steps under them. The trace is the result's `trace` and joins
+        profiling's record of recent runs; a run that raises records
+        nothing."""
+        with profiling.recording() as trace:
+            with trace.span("set"):
+                res = self._run(
+                    trace, images, intrinsics, run_ba_every_view, precomputed_keypoints,
+                    precomputed_matches, precomputed_canonical, precomputed_raw_xy,
+                )
+        res.trace = trace.trace()
+        return res
+
+    def _run(
+        self, trace, images, intrinsics, run_ba_every_view, precomputed_keypoints,
+        precomputed_matches, precomputed_canonical, precomputed_raw_xy,
+    ) -> SfMResult:
         self._check_config()
         cfg = self.config
         dev = self.device
@@ -452,21 +487,21 @@ class SfMPipeline:
         self._key_n = 0
 
         # 1. Features (src/Sfm.cpp:257-327), the whole batch at once.
-        t0 = time.time()
-        gray = torch.as_tensor(images.gray, device=dev)
-        if precomputed_keypoints is not None:
-            kp = Keypoints(
-                *(getattr(precomputed_keypoints, f.name).to(dev)
-                  for f in dataclasses.fields(Keypoints))
-            )
-        elif cfg.features.detector == "orb":
-            kp = detect_and_compute_orb_batch(gray, max_keypoints=cfg.features.max_keypoints)
-        elif cfg.features.detector == "akaze":
-            kp = detect_and_compute_akaze_batch(gray, cfg.features)
-        else:
-            kp = detect_and_compute_batch(gray, cfg.features)
-        self._sync()
-        metrics["t_features"] = time.time() - t0
+        with trace.span("features") as sp:
+            gray = torch.as_tensor(images.gray, device=dev)
+            if precomputed_keypoints is not None:
+                kp = Keypoints(
+                    *(getattr(precomputed_keypoints, f.name).to(dev)
+                      for f in dataclasses.fields(Keypoints))
+                )
+            elif cfg.features.detector == "orb":
+                kp = detect_and_compute_orb_batch(gray, max_keypoints=cfg.features.max_keypoints)
+            elif cfg.features.detector == "akaze":
+                kp = detect_and_compute_akaze_batch(gray, cfg.features)
+            else:
+                kp = detect_and_compute_batch(gray, cfg.features)
+            self._sync()
+        metrics["t_features"] = profiling.span_seconds(sp)
         metrics["n_keypoints_mean"] = float(kp.valid.sum(-1).float().mean())
         log.info(
             "features: %.2fs, mean %d kp/image",
@@ -496,230 +531,231 @@ class SfMPipeline:
         # loose registration ratio; the strict reference set is a mask.
         # "flow" selects the LK alternative (src/Sfm.cpp:1399), which
         # carries no Lowe ratio and launches no kNN kernel.
-        t0 = time.time()
-        pi, pj = _pair_list(V)
-        pi_t = torch.tensor(pi, dtype=torch.int32, device=dev)
-        pj_t = torch.tensor(pj, dtype=torch.int32, device=dev)
-        if precomputed_matches is not None:
-            matches = PairMatches(
-                *(getattr(precomputed_matches, f.name).to(dev)
-                  for f in dataclasses.fields(PairMatches))
-            )
-        elif cfg.matching.method == "flow":
-            matches = flow_match_all_pairs(
-                gray, kp.xy, kp.valid, pi, pj, radius=cfg.matching.flow_radius,
-                max_matches=cfg.matching.max_matches,
-            )
-        else:
-            # With more than one device the pair list is block-sharded over
-            # them (parallel/matching.py), as the reference does over its
-            # local devices.
-            loose = max(cfg.matching.ratio, cfg.matching.registration_ratio)
-            kw = dict(
-                ratio=loose, max_matches=cfg.matching.max_matches,
-                strict_ratio=cfg.matching.ratio, xy=kp.xy,
-                dup_radius=cfg.matching.dup_radius, dedup=cfg.matching.dedup_matches,
-            )
-            n_dev = len(self.shard_devices)
-            if n_dev > 1 and len(pi) >= n_dev:
-                matches = match_all_pairs_sharded(
-                    kp.descriptors, kp.valid, pi_t, pj_t, devices=self.shard_devices, **kw
+        with trace.span("matching") as sp:
+            pi, pj = _pair_list(V)
+            pi_t = torch.tensor(pi, dtype=torch.int32, device=dev)
+            pj_t = torch.tensor(pj, dtype=torch.int32, device=dev)
+            if precomputed_matches is not None:
+                matches = PairMatches(
+                    *(getattr(precomputed_matches, f.name).to(dev)
+                      for f in dataclasses.fields(PairMatches))
+                )
+            elif cfg.matching.method == "flow":
+                matches = flow_match_all_pairs(
+                    gray, kp.xy, kp.valid, pi, pj, radius=cfg.matching.flow_radius,
+                    max_matches=cfg.matching.max_matches,
                 )
             else:
-                matches = match_all_pairs(kp.descriptors, kp.valid, pi_t, pj_t, **kw)
-        self._sync()
-        metrics["t_matching"] = time.time() - t0
+                # With more than one device the pair list is block-sharded over
+                # them (parallel/matching.py), as the reference does over its
+                # local devices.
+                loose = max(cfg.matching.ratio, cfg.matching.registration_ratio)
+                kw = dict(
+                    ratio=loose, max_matches=cfg.matching.max_matches,
+                    strict_ratio=cfg.matching.ratio, xy=kp.xy,
+                    dup_radius=cfg.matching.dup_radius, dedup=cfg.matching.dedup_matches,
+                )
+                n_dev = len(self.shard_devices)
+                if n_dev > 1 and len(pi) >= n_dev:
+                    matches = match_all_pairs_sharded(
+                        kp.descriptors, kp.valid, pi_t, pj_t, devices=self.shard_devices, **kw
+                    )
+                else:
+                    matches = match_all_pairs(kp.descriptors, kp.valid, pi_t, pj_t, **kw)
+            self._sync()
+        metrics["t_matching"] = profiling.span_seconds(sp)
         metrics["n_pairs"] = len(pi)
         log.info("matching: %.2fs over %d pairs", metrics["t_matching"], len(pi))
 
         # 3. Pair scoring + baseline (src/Sfm.cpp:408-489) on the strict set,
         # and the all-pairs epipolar prefilter of the loose set.
         strict = matches.at_ratio(cfg.matching.ratio)
-        t0 = time.time()
-        scores, vt_loose = score_and_prefilter(
-            k_score.to(dev), k_pref.to(dev), strict, matches, kp.xy, pi, pj, K, dist, max_dim, cfg, V
-        )
-        ft_a, ft_b, _ = build_match_tables(matches, pi, pj, V)
-        _, _, vt_strict = build_match_tables(strict, pi, pj, V)
-        self._ctx = dict(
-            tables=(ft_a, ft_b, vt_strict, vt_loose), kp=kp,
-            colors=colors, pp=pp, K=K, dist=dist, max_dim=max_dim,
-            image_size=tuple(images.shape),
-        )
-        pair_of = {(a, b): n for n, (a, b) in enumerate(zip(pi, pj))}
-        scores_np = scores.pose_inlier_ratio.cpu().numpy()
-        usable_np = scores.usable.cpu().numpy()
-
-        def ranked_pairs(allowed):
-            cand = [
-                (scores_np[p], a, b) for (a, b), p in pair_of.items()
-                if a in allowed and b in allowed and usable_np[p]
-            ]
-            return [(a, b) for _, a, b in sorted(cand, reverse=True)]
-
-        lost: set = set()  # views in components whose merge failed
-        resume = self._load_ckpt(V)
-        if resume is not None:
-            state, done, lost, vi = resume
-            vj = vi
-            baseline_matches = None
-            log.info(
-                "resumed from %s: %d views registered, %d lost",
-                self.checkpoint_path, len(done), len(lost),
-            )
-        else:
-            seed = self._try_seed(
-                ranked_pairs(set(range(V))), set(), strict, pair_of, intrinsics,
-                run_ba_every_view,
-            )
-            if seed is None:
-                raise RuntimeError(
-                    "baseline reconstruction failed (no seed pair survived "
-                    "pose, angle gate, and third-view validation)"
+        with trace.span("baseline") as sp:
+            with trace.span("baseline.score"):
+                scores, vt_loose = score_and_prefilter(
+                    k_score.to(dev), k_pref.to(dev), strict, matches, kp.xy, pi, pj, K, dist, max_dim, cfg, V
                 )
-            state, done, (vi, vj) = seed
-            one = strict.pair(pair_of[(vi, vj)])
-            baseline_matches = (
-                kp.xy[vi][one.idx_a.long()].cpu().numpy(),
-                kp.xy[vj][one.idx_b.long()].cpu().numpy(),
-                one.valid.cpu().numpy(),
-            )
-            self._save_ckpt(state, done, lost, vi)
-        self._sync()
+                ft_a, ft_b, _ = build_match_tables(matches, pi, pj, V)
+                _, _, vt_strict = build_match_tables(strict, pi, pj, V)
+                self._ctx = dict(
+                    tables=(ft_a, ft_b, vt_strict, vt_loose), kp=kp,
+                    colors=colors, pp=pp, K=K, dist=dist, max_dim=max_dim,
+                    image_size=tuple(images.shape),
+                )
+                pair_of = {(a, b): n for n, (a, b) in enumerate(zip(pi, pj))}
+                scores_np = scores.pose_inlier_ratio.cpu().numpy()
+                usable_np = scores.usable.cpu().numpy()
+
+            def ranked_pairs(allowed):
+                cand = [
+                    (scores_np[p], a, b) for (a, b), p in pair_of.items()
+                    if a in allowed and b in allowed and usable_np[p]
+                ]
+                return [(a, b) for _, a, b in sorted(cand, reverse=True)]
+
+            lost: set = set()  # views in components whose merge failed
+            resume = self._load_ckpt(V)
+            if resume is not None:
+                state, done, lost, vi = resume
+                vj = vi
+                baseline_matches = None
+                log.info(
+                    "resumed from %s: %d views registered, %d lost",
+                    self.checkpoint_path, len(done), len(lost),
+                )
+            else:
+                seed = self._try_seed(
+                    ranked_pairs(set(range(V))), set(), strict, pair_of, intrinsics,
+                    run_ba_every_view,
+                )
+                if seed is None:
+                    raise RuntimeError(
+                        "baseline reconstruction failed (no seed pair survived "
+                        "pose, angle gate, and third-view validation)"
+                    )
+                state, done, (vi, vj) = seed
+                one = strict.pair(pair_of[(vi, vj)])
+                baseline_matches = (
+                    kp.xy[vi][one.idx_a.long()].cpu().numpy(),
+                    kp.xy[vj][one.idx_b.long()].cpu().numpy(),
+                    one.valid.cpu().numpy(),
+                )
+                self._save_ckpt(state, done, lost, vi)
+            self._sync()
         metrics["baseline_pair_i"] = vi
         metrics["baseline_pair_j"] = vj
-        metrics["t_baseline"] = time.time() - t0
+        metrics["t_baseline"] = profiling.span_seconds(sp)
         metrics["n_baseline_points"] = int(state.n_points)
 
         # 4. Incremental loop (src/Sfm.cpp:893-1009). guided_ctx arms the
         # guided bridge fallback: a view whose transitive 2D-3D support
         # starves across a viewpoint break is retried by map-projection
         # matching before it is left to the secondary components.
-        t0 = time.time()
         guided_ctx = (scores, pair_of)
         guided_block: List[int] = []
         metrics["n_guided_registered"] = 0
         ckpt_cb = lambda st, dn: self._save_ckpt(st, dn, lost, vi)  # noqa: E731
-        state = self._grow_component(
-            state, done, set(), anchor=vi, run_ba_every_view=run_ba_every_view,
-            ckpt_cb=ckpt_cb, guided_ctx=guided_ctx, metrics=metrics,
-            guided_block=guided_block,
-        )
-        self._sync()
-        metrics["t_incremental"] = time.time() - t0
+        with trace.span("incremental") as sp:
+            state = self._grow_component(
+                state, done, set(), anchor=vi, run_ba_every_view=run_ba_every_view,
+                ckpt_cb=ckpt_cb, guided_ctx=guided_ctx, metrics=metrics,
+                guided_block=guided_block,
+            )
+            self._sync()
+        metrics["t_incremental"] = profiling.span_seconds(sp)
 
         # 4b. Secondary components + Sim(3) merge: the remaining views
         # bootstrap their own component with the same engine, and each
         # component is merged into the main one by a gated Sim(3)
         # (merge_attempt_step) or its views are lost.
-        t0 = time.time()
         metrics["n_components"] = 1
         metrics["n_merged_components"] = 0
-        while V - len(done) - len(lost) >= 2:
-            remaining = set(range(V)) - done - lost
-            seed_b = self._try_seed(
-                ranked_pairs(remaining), done | lost, strict, pair_of, intrinsics,
-                run_ba_every_view,
-            )
-            if seed_b is None:
-                break
-            state_b, done_b, (bi, _) = seed_b
-            state_b = self._grow_component(
-                state_b, done_b, done | lost, anchor=bi,
-                run_ba_every_view=run_ba_every_view,
-            )
-            # Converge the component fully before the Sim(3) attempt.
-            state_b, _ = self._run_global_ba(state_b, anchor=bi)
-            metrics["n_components"] += 1
-            state_m, ms = merge_attempt_step(
-                self._next_key(), state, state_b, sorted(done_b), sorted(done), self._ctx["tables"],
-                kp.xy, colors, pp, K, dist, self._fix_mask(vi), cfg,
-            )
-            if ms["accepted"]:
-                log.info(
-                    "merging component %s into main (%d Sim3 inliers, scale "
-                    "%.3f, gate1 %.2f px, post-BA gate2 %.2f px over %d cross "
-                    "tracks)", sorted(done_b), ms["n_sim_inliers"], ms["scale"],
-                    ms["med_gate1_px"], ms["med_gate2_px"], ms["n_cross_tracks"],
+        with trace.span("components") as sp:
+            while V - len(done) - len(lost) >= 2:
+                remaining = set(range(V)) - done - lost
+                seed_b = self._try_seed(
+                    ranked_pairs(remaining), done | lost, strict, pair_of, intrinsics,
+                    run_ba_every_view,
                 )
-                state = state_m
-                done = done | done_b
-                metrics["n_merged_components"] += 1
-                metrics["merge_cross_med_px"] = ms["med_gate2_px"]
-                metrics["n_cross_tracks"] = ms["n_cross_tracks"]
-            else:
-                if not ms["sim_ok"]:
-                    log.warning(
-                        "component %s: Sim3 alignment failed (%d inliers) — "
-                        "dropping it", sorted(done_b), ms["n_sim_inliers"],
+                if seed_b is None:
+                    break
+                state_b, done_b, (bi, _) = seed_b
+                state_b = self._grow_component(
+                    state_b, done_b, done | lost, anchor=bi,
+                    run_ba_every_view=run_ba_every_view,
+                )
+                # Converge the component fully before the Sim(3) attempt.
+                state_b, _ = self._run_global_ba(state_b, anchor=bi)
+                metrics["n_components"] += 1
+                state_m, ms = merge_attempt_step(
+                    self._next_key(), state, state_b, sorted(done_b), sorted(done), self._ctx["tables"],
+                    kp.xy, colors, pp, K, dist, self._fix_mask(vi), cfg,
+                )
+                if ms["accepted"]:
+                    log.info(
+                        "merging component %s into main (%d Sim3 inliers, scale "
+                        "%.3f, gate1 %.2f px, post-BA gate2 %.2f px over %d cross "
+                        "tracks)", sorted(done_b), ms["n_sim_inliers"], ms["scale"],
+                        ms["med_gate1_px"], ms["med_gate2_px"], ms["n_cross_tracks"],
                     )
-                elif ms["med_gate1_px"] > cfg.geometry.max_merge_reprojection_px:
-                    log.warning(
-                        "component %s: Sim(3) rejected by reprojection gate "
-                        "(median %.2f px > %.1f)", sorted(done_b),
-                        ms["med_gate1_px"], cfg.geometry.max_merge_reprojection_px,
-                    )
+                    state = state_m
+                    done = done | done_b
+                    metrics["n_merged_components"] += 1
+                    metrics["merge_cross_med_px"] = ms["med_gate2_px"]
+                    metrics["n_cross_tracks"] = ms["n_cross_tracks"]
                 else:
-                    log.warning(
-                        "component %s: merge rejected by post-BA cross-track "
-                        "gate (median %.2f px)", sorted(done_b), ms["med_gate2_px"],
-                    )
-                lost |= done_b  # its views stay unregistered
-            self._save_ckpt(state, done, lost, vi)
+                    if not ms["sim_ok"]:
+                        log.warning(
+                            "component %s: Sim3 alignment failed (%d inliers) — "
+                            "dropping it", sorted(done_b), ms["n_sim_inliers"],
+                        )
+                    elif ms["med_gate1_px"] > cfg.geometry.max_merge_reprojection_px:
+                        log.warning(
+                            "component %s: Sim(3) rejected by reprojection gate "
+                            "(median %.2f px > %.1f)", sorted(done_b),
+                            ms["med_gate1_px"], cfg.geometry.max_merge_reprojection_px,
+                        )
+                    else:
+                        log.warning(
+                            "component %s: merge rejected by post-BA cross-track "
+                            "gate (median %.2f px)", sorted(done_b), ms["med_gate2_px"],
+                        )
+                    lost |= done_b  # its views stay unregistered
+                self._save_ckpt(state, done, lost, vi)
 
-        # 4c. Straggler sweep: a view that failed PnP against either
-        # component alone often registers against the merged cloud.
-        if metrics["n_merged_components"] > 0 and len(done) + len(lost) < V:
-            n_before = len(done)
-            state = self._grow_component(
-                state, done, lost, anchor=vi, run_ba_every_view=run_ba_every_view,
-                ckpt_cb=ckpt_cb, guided_ctx=guided_ctx, metrics=metrics,
-                guided_block=guided_block,
-            )
-            if len(done) > n_before:
-                log.info("straggler sweep registered %d more view(s)", len(done) - n_before)
-        self._sync()
-        metrics["t_components"] = time.time() - t0
+            # 4c. Straggler sweep: a view that failed PnP against either
+            # component alone often registers against the merged cloud.
+            if metrics["n_merged_components"] > 0 and len(done) + len(lost) < V:
+                n_before = len(done)
+                state = self._grow_component(
+                    state, done, lost, anchor=vi, run_ba_every_view=run_ba_every_view,
+                    ckpt_cb=ckpt_cb, guided_ctx=guided_ctx, metrics=metrics,
+                    guided_block=guided_block,
+                )
+                if len(done) > n_before:
+                    log.info("straggler sweep registered %d more view(s)", len(done) - n_before)
+            self._sync()
+        metrics["t_components"] = profiling.span_seconds(sp)
 
         # 5. Final global BA, after a rotation-averaging reinit on large
         # view sets (kept only if the polished result does not regress).
-        t0 = time.time()
         ba_metrics = None
-        # 5a. Guided-block realign: when views crossed a break on guided 2D
-        # evidence, re-verify the block's placement by 3D-3D Sim(3)
-        # consensus against the rest of the map, with a snapshot-compare
-        # revert.
-        block = sorted(set(guided_block) & done)
-        if block and len(block) < len(done):
-            b_mask = torch.zeros((V,), dtype=torch.bool, device=dev)
-            b_mask[block] = True
-            ft_a, ft_b, vt_strict, _ = self._ctx["tables"]
-            state_ra, ra = block_realign(
-                self._next_key(), state, b_mask, ft_a, ft_b, vt_strict, kp.xy, _k_matrix(state.focal, pp),
-                threshold_px=0.75 * cfg.geometry.max_merge_reprojection_px, n_hypotheses=16384,
-            )
-            log.info(
-                "block realign %s: ok=%d inliers=%d/%d scale=%.3f", block, ra["ok"],
-                ra["n_inliers"], ra["n_candidates"], ra["scale"],
-            )
-            if ra["ok"]:
-                state, ba_metrics, applied = self._accept_reinit(state_ra, state, vi, "block realign")
-                metrics["block_realign_applied"] = applied
-        if cfg.ba.rotavg_min_views and len(done) >= cfg.ba.rotavg_min_views:
-            state_ra = self._rotavg_initialize(
-                state, done, scores, pi, pj, self._ctx["tables"], kp.xy, colors,
-                pp, K, dist,
-            )
-            if state_ra is not state:
-                state, ba_metrics, applied = self._accept_reinit(
-                    state_ra, state, vi, "rotavg reinit"
+        with trace.span("final_ba") as sp:
+            # 5a. Guided-block realign: when views crossed a break on guided 2D
+            # evidence, re-verify the block's placement by 3D-3D Sim(3)
+            # consensus against the rest of the map, with a snapshot-compare
+            # revert.
+            block = sorted(set(guided_block) & done)
+            if block and len(block) < len(done):
+                b_mask = torch.zeros((V,), dtype=torch.bool, device=dev)
+                b_mask[block] = True
+                ft_a, ft_b, vt_strict, _ = self._ctx["tables"]
+                state_ra, ra = block_realign(
+                    self._next_key(), state, b_mask, ft_a, ft_b, vt_strict, kp.xy, _k_matrix(state.focal, pp),
+                    threshold_px=0.75 * cfg.geometry.max_merge_reprojection_px, n_hypotheses=16384,
                 )
-                metrics["rotavg_applied"] = applied
-        if ba_metrics is None:
-            state, ba_metrics = self._run_global_ba(state, anchor=vi)
-        metrics.update(ba_metrics)
-        self._sync()
-        metrics["t_final_ba"] = time.time() - t0
+                log.info(
+                    "block realign %s: ok=%d inliers=%d/%d scale=%.3f", block, ra["ok"],
+                    ra["n_inliers"], ra["n_candidates"], ra["scale"],
+                )
+                if ra["ok"]:
+                    state, ba_metrics, applied = self._accept_reinit(state_ra, state, vi, "block realign")
+                    metrics["block_realign_applied"] = applied
+            if cfg.ba.rotavg_min_views and len(done) >= cfg.ba.rotavg_min_views:
+                state_ra = self._rotavg_initialize(
+                    state, done, scores, pi, pj, self._ctx["tables"], kp.xy, colors,
+                    pp, K, dist,
+                )
+                if state_ra is not state:
+                    state, ba_metrics, applied = self._accept_reinit(
+                        state_ra, state, vi, "rotavg reinit"
+                    )
+                    metrics["rotavg_applied"] = applied
+            if ba_metrics is None:
+                state, ba_metrics = self._run_global_ba(state, anchor=vi)
+            metrics.update(ba_metrics)
+            self._sync()
+        metrics["t_final_ba"] = profiling.span_seconds(sp)
 
         valid = state.points_valid.cpu().numpy()
         pts = state.points_xyz.cpu().numpy()[valid]
@@ -760,40 +796,47 @@ class SfMPipeline:
         cfg = self.config
         V = c["kp"].xy.shape[0]
         can_validate = V - len(exclude) >= 3
-        for bi, bj in seed_pairs[:max_attempts]:
-            bm = strict.pair(pair_of[(bi, bj)])
-            for basin in (0, 1):
-                st = init_state(
-                    V, cfg.features.max_keypoints, cfg.max_points, intrinsics.fx,
-                    device=self.device,
-                )
-                st, ok, med_ang = bootstrap_adjust_step(
-                    self._next_key(), st, bm, c["kp"].xy, c["colors"], bi, bj, c["pp"],
-                    c["K"], c["dist"], self._fix_mask(bi), basin, cfg,
-                )
-                if not bool(ok):
-                    log.info(
-                        "seed (%d, %d) basin %d rejected (pose/angle gate, "
-                        "med angle %.2f deg)", bi, bj, basin, float(med_ang),
-                    )
-                    continue
-                done_b = {bi, bj}
-                if not can_validate:
-                    return st, done_b, (bi, bj)
-                st2 = self._grow_component(
-                    st, done_b, exclude, anchor=bi,
-                    run_ba_every_view=run_ba_every_view, max_new_views=1,
-                )
-                if len(done_b) >= 3:
-                    log.info(
-                        "seed (%d, %d) basin %d validated by view %s (med angle %.2f deg)",
-                        bi, bj, basin, sorted(done_b - {bi, bj}), float(med_ang),
-                    )
-                    return st2, done_b, (bi, bj)
-                log.warning(
-                    "seed (%d, %d) basin %d: no third view registers — rejecting seed",
-                    bi, bj, basin,
-                )
+        with profiling.span("seed") as sp:
+            for bi, bj in seed_pairs[:max_attempts]:
+                bm = strict.pair(pair_of[(bi, bj)])
+                for basin in (0, 1):
+                    with profiling.span("seed.basin", pair_i=bi, pair_j=bj, basin=basin):
+                        st = init_state(
+                            V, cfg.features.max_keypoints, cfg.max_points, intrinsics.fx,
+                            device=self.device,
+                        )
+                        profiling.count("seed_basins")
+                        st, ok, med_ang = bootstrap_adjust_step(
+                            self._next_key(), st, bm, c["kp"].xy, c["colors"], bi, bj, c["pp"],
+                            c["K"], c["dist"], self._fix_mask(bi), basin, cfg,
+                        )
+                        if not bool(ok):
+                            log.info(
+                                "seed (%d, %d) basin %d rejected (pose/angle gate, "
+                                "med angle %.2f deg)", bi, bj, basin, float(med_ang),
+                            )
+                            continue
+                        profiling.count("seed_basins_accepted")
+                        done_b = {bi, bj}
+                        if not can_validate:
+                            profiling.annotate(sp, pair_i=bi, pair_j=bj, basin=basin)
+                            return st, done_b, (bi, bj)
+                        st2 = self._grow_component(
+                            st, done_b, exclude, anchor=bi,
+                            run_ba_every_view=run_ba_every_view, max_new_views=1,
+                        )
+                        if len(done_b) >= 3:
+                            log.info(
+                                "seed (%d, %d) basin %d validated by view %s (med angle %.2f deg)",
+                                bi, bj, basin, sorted(done_b - {bi, bj}), float(med_ang),
+                            )
+                            profiling.count("seeds_validated")
+                            profiling.annotate(sp, pair_i=bi, pair_j=bj, basin=basin)
+                            return st2, done_b, (bi, bj)
+                        log.warning(
+                            "seed (%d, %d) basin %d: no third view registers — rejecting seed",
+                            bi, bj, basin,
+                        )
         return None
 
     def _grow_component(

@@ -257,8 +257,18 @@ def test_full_cli_writes_every_artifact(tmp_path, half_size_scene, detector):
     ] + (["--viz"] if detector == "orb" else []))
     assert rc == 0
     rec = _records(out)
-    assert set(rec) == {"sfm", "dense", "filter", "mesh", "segment", "dendrometry", "timing"}
+    assert set(rec) == {"sfm", "dense", "filter", "mesh", "segment", "dendrometry", "timing", "trace"}
     assert rec["sfm"]["n_registered"] == 6 and rec["sfm"]["ba_rms_px"] < 1.0
+    # The run's trace: one root "set", the six stage spans under it, whose
+    # durations are the sfm record's t_* timers, and the counters.
+    spans, counters = rec["trace"]["spans"], rec["trace"]["counters"]
+    assert [s["name"] for s in spans if s["parent"] == -1] == ["set"]
+    stages = {s["name"]: s for s in spans if s["parent"] == spans[0]["index"]}
+    assert list(stages) == ["features", "matching", "baseline", "incremental", "components", "final_ba"]
+    for name, s in stages.items():
+        assert (s["end_ns"] - s["start_ns"]) / 1e9 == rec["sfm"]["t_" + name]
+    assert counters["pnp_attempts"] >= 4 and counters["seed_basins"] >= 1
+    assert counters["lm_iterations"] >= counters["ba_solves"] >= 1
     pts, cols = read_ply(os.path.join(out, "sparse.ply"))
     assert len(pts) == rec["sfm"]["n_points"] and cols.shape == pts.shape
     with open(os.path.join(out, "cameras.json")) as f:

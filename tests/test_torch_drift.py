@@ -194,9 +194,9 @@ def test_flops_models_equal_and_peak_is_the_h100s():
     assert t_flops.mfu(67.0e12, 1.0) == 1.0
 
 
-def test_stage_timer_and_profiler_trace(tmp_path):
+def test_stage_timer_and_profiler_trace():
     from sfm_danpipeline_tpu.utils.profiling import StageTimer as JTimer
-    from sfm_danpipeline_torch.utils.profiling import StageTimer, profiler_trace
+    from sfm_danpipeline_torch.utils.profiling import StageTimer
 
     for cls in (JTimer, StageTimer):
         t = cls()
@@ -205,13 +205,6 @@ def test_stage_timer_and_profiler_trace(tmp_path):
         with t.stage("a"):
             pass
         assert t.counts == {"a": 2} and set(t.as_metrics()) == {"t_a"}
-    with profiler_trace(None):
-        pass
-    import torch
-
-    with profiler_trace(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
 
 
 def test_broadcast_metrics_list_equal():
