@@ -94,11 +94,10 @@ _BATCH_BYTES = {"cuda": 8 << 30, "cpu": 1 << 30}
 
 def pair_slices(n_pairs: int, n_hypotheses: int, n_slots: int, device) -> list:
     """Slices of the pair axis small enough for the memory budget: all pairs
-    at once where they fit (on the card, also under half its free memory)."""
-    device = torch.device(device)
-    budget = _BATCH_BYTES["cuda" if device.type == "cuda" else "cpu"]
-    if device.type == "cuda":
-        budget = min(budget, torch.cuda.mem_get_info(device)[0] // 2)
+    at once where they fit. The budget is fixed per device type, so the
+    slices, and the shapes the polish's CUDA graphs are kept for, depend on
+    the data alone."""
+    budget = _BATCH_BYTES["cuda" if torch.device(device).type == "cuda" else "cpu"]
     step = max(1, budget // (_TABLES_PER_PAIR * n_hypotheses * max(n_slots, 1) * 4))
     return [slice(a, min(a + step, n_pairs)) for a in range(0, n_pairs, step)]
 
