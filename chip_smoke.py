@@ -204,6 +204,8 @@ RING_ROUNDING_SEEDS = {1: "a wrong trajectory in the reference too"}
 RING_CORE, RING_CORE_MIN = range(11, 43), 30
 RING_POINTS_RTOL = 0.01
 RING_KEYPOINTS = "ring_keypoints.pt"
+# The counters of the port's departures from the reference, printed per run.
+DEPARTURES = ("pnp_reselect_taken", "blind_views_swept", "seeds_loop_rejected")
 RING_DECISIONS = ("seed (", "merging", "component", "straggler", "global reinit", "rotavg")
 # Phase 12: the multi-process run's scene and the polish threshold that
 # forces the observation-sharded polish at this size.
@@ -455,6 +457,7 @@ def run_pipeline(n_views, ring_fraction, components):
     ate_frac = ate_fraction(scene, res.state.cameras.cpu().numpy(), res.registered_views)
     stages = {k: round(v, 3) for k, v in m.items() if k.startswith("t_")}
     print(f"V={n_views} stages (s): {json.dumps(stages)}")
+    _print_departures(f"V={n_views}", res)
     split = timer.split(m["t_baseline"])
     print(
         "V=%d t_baseline %.3f s: pair scoring %.3f s, prefilter %.3f s, seed bootstrap "
@@ -801,6 +804,14 @@ def check_knn2_on_run(name, res, cfg):
     return check_knn2_case(name, case, exact_idx=True, timed=True)
 
 
+def _print_departures(tag, res):
+    """The run's counts of the port's departures from the reference
+    (ROADMAP.md, known defects of the reference): where each is 0 the run
+    took the reference's decisions."""
+    counters = res.trace["counters"]
+    print(f"{tag} departures: " + ", ".join(f"{k} {counters.get(k, 0)}" for k in DEPARTURES))
+
+
 def _print_run(tag, m, ate_frac, ref):
     stages = {k: round(v, 3) for k, v in m.items() if k.startswith("t_")}
     print(f"{tag} stages (s): {json.dumps(stages)}")
@@ -862,6 +873,7 @@ def run_cli_akaze(scene, workdir):
         cams = json.load(f)
     ate_frac = ate_fraction(scene, cams["cameras"], cams["registered_views"])
     _print_run("AKAZE V=10 (CLI)", m, ate_frac, REF_AKAZE)
+    _print_departures("AKAZE V=10 (CLI)", run.sfm)
     print(f"AKAZE V=10 (CLI) stage runner times (s): {json.dumps({k: round(v, 3) for k, v in rec['timing'].items() if k.startswith('t_')})}")
     _require(m["n_registered"] == 10 and cams["registered_views"] == list(range(10)), "AKAZE: not 10/10")
     _require(m["n_components"] == 1, f"AKAZE: {m['n_components']} components")
@@ -986,6 +998,7 @@ def run_frontend(tag, detector, matcher, ring_fraction, ref, knn2_launches, seed
     m = res.metrics
     ate_frac = ate_fraction(scene, res.state.cameras.cpu().numpy(), res.registered_views)
     _print_run(tag, m, ate_frac, ref)
+    _print_departures(tag, res)
     _require(m["n_registered"] == 10, f"{tag}: registered {m['n_registered']}/10")
     _require(m["ba_rms_px"] < 1.0, f"{tag}: BA RMS {m['ba_rms_px']} px >= 1")
     _require(np.isfinite(res.points).all() and len(res.points) > 0, f"{tag}: bad sparse cloud")
@@ -1024,6 +1037,7 @@ def run_flow_seeds():
         launches["knn2"] += la["knn2"]
         ate_frac = ate_fraction(scene, res.state.cameras.cpu().numpy(), res.registered_views)
         _print_run(f"flow V=10 seed {seed}", res.metrics, ate_frac, REF_FLOW)
+        _print_departures(f"flow V=10 seed {seed}", res)
         runs[seed] = dict(
             n=res.metrics["n_registered"], rms=res.metrics["ba_rms_px"], ate=100 * ate_frac,
             finite=bool(np.isfinite(res.points).all() and len(res.points) > 0), knn2=la["knn2"],
@@ -1272,6 +1286,7 @@ def run_guided():
     ate_frac = ate_fraction(scene, res.state.cameras.cpu().numpy(), res.registered_views)
     stages = {k: round(v, 3) for k, v in m.items() if k.startswith("t_")}
     print(f"guided V=20 stages (s): {json.dumps(stages)}")
+    _print_departures("guided V=20", res)
     print(
         "guided V=20: registered %d/20 %s, %d by the guided bridge, block realign %s, "
         "components %d (merged %d), RMS %.3f px, %d points, ATE %.4f%% of diameter, knn2 "
@@ -1339,6 +1354,7 @@ def run_ring(logdir):
         tag = f"ring V={RING_VIEWS} seed {seed}"
         decisions = [t for t in trail if t.startswith(RING_DECISIONS)]
         n_failed = sum("PnP failed" in t for t in trail)
+        _print_departures(tag, res)
         print(f"{tag} decisions ({n_failed} PnP failures not shown):")
         print("".join(f"  {t}\n" for t in decisions), end="")
         stages = {k: round(v, 3) for k, v in m.items() if k.startswith("t_")}

@@ -193,11 +193,19 @@ def run_ba(
     tensor over the shards (an all-reduce across processes,
     parallel/distributed.py). It is applied to every cost and to every field
     of the normal blocks, so the reduced camera system is solved replicated.
-    The default (none) is the single-device solve."""
+    The default (none) is the single-device solve.
+
+    A table with no rows (every observation pruned) returns the problem's
+    parameters with zero iterations and a zero cost. The reference pads its
+    table to a bucket of zero-weight rows, so its cost is zero too and no
+    step it takes moves a parameter; here the empty batch is never handed
+    to the Jacobian's vmap, which cannot take one."""
     obs = (problem.obs_cam, problem.obs_pt, problem.obs_xy, problem.obs_w)
     if reduce is None:
         reduce = _identity
     budget = config.max_iterations if max_iterations is None else int(max_iterations)
+    if problem.n_obs == 0:
+        budget = 0
     plans = segment_plans(problem) if budget > 0 else None
 
     def cost_of(cameras, focal, points):

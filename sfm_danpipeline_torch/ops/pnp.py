@@ -20,6 +20,11 @@ from sfm_danpipeline_torch.ops.ransac import sample_indices
 from sfm_danpipeline_torch.ops.select import top_k_indices
 
 
+# RANSAC prescores every hypothesis on this many valid rows, then
+# full-scores the best 384.
+PRESCORE_ROWS = 256
+
+
 class PnPResult(NamedTuple):
     R: torch.Tensor  # (3,3)
     t: torch.Tensor  # (3,)
@@ -205,10 +210,18 @@ def solve_pnp_ransac(
     min_inliers: int = 6,
     sample_mask: Optional[torch.Tensor] = None,
     samples: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    prescore_strict_first: bool = False,
 ) -> PnPResult:
     """RANSAC PnP over 2D-3D correspondences. X (M,3) world points, px
     (M,2) pixels, xn (M,2) normalized obs, valid (M,). `samples` injects
-    the (DLT, P3P) draws of `pnp_sample_draws`."""
+    the (DLT, P3P) draws of `pnp_sample_draws`.
+
+    The prescore subset is the first 256 valid rows in row order, as the
+    reference takes it. With `prescore_strict_first` it is the first 256
+    valid rows of `sample_mask` (then the other valid rows), a departure
+    from the reference: registration orders its loose-only rows first, and
+    where more than 256 of them are outliers the reference's subset holds
+    no true row, so every hypothesis the prescore keeps is wrong."""
     idx6, idx3 = samples if samples is not None else pnp_sample_draws(
         key, valid, n_hypotheses, sample_size, sample_mask
     )
@@ -224,8 +237,11 @@ def solve_pnp_ransac(
         1.0 + (sample_mask & valid).to(X.dtype) if sample_mask is not None
         else torch.ones_like(valid, dtype=X.dtype)
     )
-    S = min(256, X.shape[0])
-    order = torch.argsort((~valid).to(torch.int8), stable=True)[:S]
+    S = min(PRESCORE_ROWS, X.shape[0])
+    rank = (~valid).to(torch.int8)
+    if prescore_strict_first and sample_mask is not None:
+        rank = rank * 2 + (~sample_mask).to(torch.int8)
+    order = torch.argsort(rank, stable=True)[:S]
     sub_valid = valid[order]
     pres = torch.clamp(_reproj_errors_px(models, X[order], px[order], K), max=1e9)
     pres = torch.where(sub_valid[None, :], pres, torch.zeros_like(pres))

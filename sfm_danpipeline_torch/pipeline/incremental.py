@@ -11,6 +11,7 @@ here; `done_views` is a plain list of registered view ids.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -20,7 +21,7 @@ from sfm_danpipeline_torch.ops import prng
 from sfm_danpipeline_torch.ops.epipolar import estimate_relative_pose
 from sfm_danpipeline_torch.ops.lie import exp_so3, log_so3
 from sfm_danpipeline_torch.ops.matching import PairMatches
-from sfm_danpipeline_torch.ops.pnp import solve_pnp_ransac
+from sfm_danpipeline_torch.ops.pnp import PRESCORE_ROWS, solve_pnp_ransac
 from sfm_danpipeline_torch.ops.projection import undistort_points
 from sfm_danpipeline_torch.ops.ransac import pair_slices, sample_indices
 from sfm_danpipeline_torch.ops.triangulation import triangulate_and_filter
@@ -31,6 +32,8 @@ from sfm_danpipeline_torch.pipeline.tracks import (
     live_observations,
 )
 from sfm_danpipeline_torch.utils import profiling
+
+log = logging.getLogger("sfm_danpipeline_torch")
 
 
 def epipolar_filter_matches(
@@ -131,10 +134,50 @@ def register_view(
     image_max_dim: float,
     config: PipelineConfig,
     valid_tab_strict: Optional[torch.Tensor] = None,
-) -> Tuple[ReconstructionState, torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[ReconstructionState, bool, int, int]:
     """PnP-register `new_view` from 2D-3D correspondences through the track
     table, reading the epipolar-prefiltered loose table `valid_tab`.
-    Returns (state, ok, n_inliers, n_support)."""
+    Returns (state, ok, n_inliers, n_support) as host values
+    (`register_view_blind` also says whether a failed pick was blind)."""
+    state, ok, n_in, n_support, _ = register_view_blind(
+        key, state, new_view, done_views, feat_tab_a, feat_tab_b, valid_tab, keypoints_xy,
+        K, dist, image_max_dim, config, valid_tab_strict=valid_tab_strict,
+    )
+    return state, ok, n_in, n_support
+
+
+def register_view_blind(
+    key: Optional[torch.Tensor],
+    state: ReconstructionState,
+    new_view: int,
+    done_views: Sequence[int],
+    feat_tab_a: torch.Tensor,
+    feat_tab_b: torch.Tensor,
+    valid_tab: torch.Tensor,
+    keypoints_xy: torch.Tensor,
+    K: torch.Tensor,
+    dist: torch.Tensor,
+    image_max_dim: float,
+    config: PipelineConfig,
+    valid_tab_strict: Optional[torch.Tensor] = None,
+    retry_failed: bool = False,
+) -> Tuple[ReconstructionState, bool, int, int, bool]:
+    """`register_view`, also returning whether its pick failed blind.
+
+    A departure from the reference. The reference's RANSAC prescores its
+    hypotheses on the first `PRESCORE_ROWS` (256) valid rows, and
+    registration orders its loose-only rows first, so where more than 256
+    of those exist the
+    prescore sees few strict rows or none. Where it sees fewer than a pick
+    needs to pass (`pnp_min_inliers`) the pick is blind: every hypothesis
+    the prescore keeps may be wrong, and the pick fails on a few inliers
+    or passes bent on a few dozen. A blind pick that passes with under
+    half the strict rows as inliers, or (with `retry_failed`) fails, is
+    selected again from the same key and hypotheses with the strict rows
+    prescored first (`solve_pnp_ransac(prescore_strict_first=True)`); the
+    new pick is taken where it passes with at least half the strict rows
+    as inliers. Every other pick is the reference's, bit for bit. One host
+    read serves the check and the counts returned."""
     dev = state.device
     dv = torch.as_tensor(list(done_views), dtype=torch.long, device=dev)
     feat_new = feat_tab_a[new_view, dv]  # (D, M)
@@ -164,12 +207,35 @@ def register_view(
     px = keypoints_xy[new_view][fnew_s.long()]
     xn = undistort_points(px, K, dist)
     g = config.geometry
-    res = solve_pnp_ransac(
-        key, X, px, xn, keep, K,
+    sample = keep & strict_s
+    pnp_args = (key, X, px, xn, keep, K)
+    pnp_kw = dict(
         threshold_px=g.pnp_threshold_factor * image_max_dim,
         n_hypotheses=g.pnp_ransac_iters, max_translation=g.pnp_max_translation,
-        min_inliers=g.pnp_min_inliers, sample_mask=keep & strict_s,
+        min_inliers=g.pnp_min_inliers, sample_mask=sample,
     )
+    res = solve_pnp_ransac(*pnp_args, **pnp_kw)
+    ok, n_in, n_support, n_strict, n_strict_in = torch.stack([
+        res.ok.to(torch.int64), res.n_inliers.to(torch.int64), torch.sum(keep),
+        torch.sum(sample), torch.sum(res.inliers & sample),
+    ]).tolist()
+    # Strict rows among the prescore's first valid rows: the valid rows
+    # there less the loose-only rows, which come first.
+    seen = min(n_support, PRESCORE_ROWS, X.shape[0]) - (n_support - n_strict)
+    blind = seen < g.pnp_min_inliers
+    if blind and ((ok and 2 * n_strict_in < n_strict) or (not ok and retry_failed)):
+        alt = solve_pnp_ransac(*pnp_args, prescore_strict_first=True, **pnp_kw)
+        alt_ok, alt_in, alt_strict_in = torch.stack([
+            alt.ok.to(torch.int64), alt.n_inliers.to(torch.int64), torch.sum(alt.inliers & sample),
+        ]).tolist()
+        profiling.count("pnp_reselected")
+        if alt_ok and 2 * alt_strict_in >= n_strict:
+            profiling.count("pnp_reselect_taken")
+            log.info(
+                "view %d: blind PnP pick (%s, %d inliers) reselected: %d inliers, %d of %d strict rows",
+                new_view, "passed" if ok else "failed", n_in, alt_in, alt_strict_in, n_strict,
+            )
+            res, ok, n_in = alt, alt_ok, alt_in
     cameras = state.cameras.clone()
     camera_valid = state.camera_valid.clone()
     cameras[new_view] = torch.where(
@@ -177,7 +243,7 @@ def register_view(
     )
     camera_valid[new_view] = camera_valid[new_view] | res.ok
     state = dataclasses.replace(state, cameras=cameras, camera_valid=camera_valid)
-    return state, res.ok, res.n_inliers, torch.sum(keep)
+    return state, bool(ok), n_in, n_support, bool(blind and not ok)
 
 
 def triangulate_new_view(
@@ -252,17 +318,19 @@ def register_and_triangulate(
     dist: torch.Tensor,
     image_max_dim: float,
     config: PipelineConfig,
-) -> Tuple[ReconstructionState, Tuple[int, int, int, int, int]]:
-    """PnP registration and, when it succeeds, triangulation against every
-    done view (strict table). Returns (state, (ok, n_inliers, n_support,
-    n_points, n_obs)) as host ints."""
+    retry_failed: bool = False,
+) -> Tuple[ReconstructionState, Tuple[int, int, int, int, int, int]]:
+    """PnP registration (`register_view_blind`) and, when it succeeds,
+    triangulation against every done view (strict table). Returns (state,
+    (ok, n_inliers, n_support, n_points, n_obs, failed_blind)) as host
+    ints."""
     profiling.count("pnp_attempts")
     with profiling.span("pnp", view=new_view, done_views=len(done_views)) as sp:
-        state, ok, n_inl, n_support = register_view(
+        state, ok, n_inl, n_support, failed_blind = register_view_blind(
             key, state, new_view, done_views, feat_tab_a, feat_tab_b, valid_tab_loose,
             keypoints_xy, K, dist, image_max_dim, config, valid_tab_strict=valid_tab_strict,
+            retry_failed=retry_failed,
         )
-        ok = bool(ok)
     profiling.annotate(sp, ok=ok)
     profiling.count("pnp_failed", int(not ok))
     if ok:
@@ -272,5 +340,5 @@ def register_and_triangulate(
         )
     n_obs = torch.sum(live_observations(state))
     return state, (
-        int(ok), int(n_inl), int(n_support), int(state.n_points), int(n_obs)
+        int(ok), n_inl, n_support, int(state.n_points), int(n_obs), int(failed_blind)
     )

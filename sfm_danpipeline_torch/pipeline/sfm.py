@@ -97,7 +97,6 @@ from sfm_danpipeline_torch.utils.checkpoint import load_state, save_state
 
 log = logging.getLogger("sfm_danpipeline_torch")
 
-
 def _k_matrix(focal: torch.Tensor, pp: torch.Tensor) -> torch.Tensor:
     z = torch.zeros_like(focal)
     o = torch.ones_like(focal)
@@ -206,22 +205,23 @@ def bootstrap_adjust_step(
 def register_adjust_step(
     key, state, new_view: int, done_views, tables, keypoints_xy, colors, pp, K,
     dist, image_max_dim: float, config: PipelineConfig, fix_cam,
-    local_view: Optional[int], run_ba: bool = True,
+    local_view: Optional[int], run_ba: bool = True, retry_failed: bool = False,
 ):
     """PnP register + triangulate + (when registration succeeds) the
-    per-view BA, local-window when `local_view` is set. Returns (state,
-    (ok, n_inliers, n_support, n_points, n_obs))."""
+    per-view BA, local-window when `local_view` is set. `retry_failed` is
+    `register_view_blind`'s. Returns (state, (ok, n_inliers, n_support, n_points,
+    n_obs, failed_blind))."""
     ft_a, ft_b, vt_strict, vt_loose = tables
     state, stats = register_and_triangulate(
         key, state, new_view, done_views, ft_a, ft_b, vt_loose, vt_strict,
-        keypoints_xy, colors, K, dist, image_max_dim, config,
+        keypoints_xy, colors, K, dist, image_max_dim, config, retry_failed=retry_failed,
     )
     if stats[0] and run_ba:
         state = ba_step(
             state, keypoints_xy, pp, fix_cam, config,
             config.ba.intermediate_iterations, local_view=local_view,
         )[0]
-        stats = stats[:4] + (int(torch.sum(live_observations(state))),)
+        stats = stats[:4] + (int(torch.sum(live_observations(state))),) + stats[5:]
     return state, stats
 
 
@@ -366,6 +366,7 @@ class SfMPipeline:
                     torch.device("cuda", i) for i in range(torch.cuda.device_count()) if i != home
                 ]
         self.shard_devices = [torch.device(d) for d in shard_devices]
+        self._failed_blind: set = set()  # views whose last PnP pick failed blind
 
     def _sync(self) -> None:
         """Wait for queued device work so host timers read true stage times."""
@@ -485,6 +486,7 @@ class SfMPipeline:
         k_pref = prng.fold_in(root, 0x9E1F)
         self._keys = prng.split(k_reg, V * 32)
         self._key_n = 0
+        self._failed_blind = set()
 
         # 1. Features (src/Sfm.cpp:257-327), the whole batch at once.
         with trace.span("features") as sp:
@@ -580,7 +582,7 @@ class SfMPipeline:
                 self._ctx = dict(
                     tables=(ft_a, ft_b, vt_strict, vt_loose), kp=kp,
                     colors=colors, pp=pp, K=K, dist=dist, max_dim=max_dim,
-                    image_size=tuple(images.shape),
+                    image_size=tuple(images.shape), scores=scores,
                 )
                 pair_of = {(a, b): n for n, (a, b) in enumerate(zip(pi, pj))}
                 scores_np = scores.pose_inlier_ratio.cpu().numpy()
@@ -704,14 +706,29 @@ class SfMPipeline:
                 self._save_ckpt(state, done, lost, vi)
 
             # 4c. Straggler sweep: a view that failed PnP against either
-            # component alone often registers against the merged cloud.
-            if metrics["n_merged_components"] > 0 and len(done) + len(lost) < V:
+            # component alone often registers against the merged cloud. A
+            # departure from the reference joins it where at most a quarter
+            # of the views are out: a view no component holds whose last
+            # pick failed blind (register_view_blind) is swept too, merged
+            # or not, and a blind pick that fails in the sweep is selected
+            # again. Where more views are out the gaps are more than blind
+            # picks (a dropped component, a stretch no pair bridges) and the
+            # sweep is the reference's, as it is where no pick failed blind.
+            few_out = 4 * (V - len(done)) <= V
+            blind = self._failed_blind - done - lost if few_out else set()
+            merged = metrics["n_merged_components"] > 0
+            exclude_ref = lost if merged else set(range(V)) - done  # the reference's sweep
+            if (merged and len(done) + len(lost) < V) or blind:
                 n_before = len(done)
-                state = self._grow_component(
-                    state, done, lost, anchor=vi, run_ba_every_view=run_ba_every_view,
-                    ckpt_cb=ckpt_cb, guided_ctx=guided_ctx, metrics=metrics,
-                    guided_block=guided_block,
-                )
+                exclude = exclude_ref - blind
+                trace.count("blind_views_swept", len(blind & exclude_ref))
+                with trace.span("stragglers"):
+                    state = self._grow_component(
+                        state, done, exclude, anchor=vi, run_ba_every_view=run_ba_every_view,
+                        ckpt_cb=ckpt_cb, guided_ctx=guided_ctx, metrics=metrics,
+                        guided_block=guided_block, retry_failed=few_out,
+                    )
+                trace.count("straggler_views", len(done) - n_before)
                 if len(done) > n_before:
                     log.info("straggler sweep registered %d more view(s)", len(done) - n_before)
             self._sync()
@@ -742,15 +759,19 @@ class SfMPipeline:
                     state, ba_metrics, applied = self._accept_reinit(state_ra, state, vi, "block realign")
                     metrics["block_realign_applied"] = applied
             if cfg.ba.rotavg_min_views and len(done) >= cfg.ba.rotavg_min_views:
-                state_ra = self._rotavg_initialize(
-                    state, done, scores, pi, pj, self._ctx["tables"], kp.xy, colors,
-                    pp, K, dist,
-                )
-                if state_ra is not state:
-                    state, ba_metrics, applied = self._accept_reinit(
-                        state_ra, state, vi, "rotavg reinit"
+                with trace.span("reinit", n_registered=len(done)) as sp_re:
+                    state_ra = self._rotavg_initialize(
+                        state, done, scores, pi, pj, self._ctx["tables"], kp.xy, colors,
+                        pp, K, dist,
                     )
-                    metrics["rotavg_applied"] = applied
+                    applied = 0.0
+                    if state_ra is not state:
+                        state, ba_metrics, applied = self._accept_reinit(
+                            state_ra, state, vi, "rotavg reinit"
+                        )
+                        metrics["rotavg_applied"] = applied
+                    profiling.annotate(sp_re, applied=bool(applied))
+                trace.count("reinit_applied", int(applied))
             if ba_metrics is None:
                 state, ba_metrics = self._run_global_ba(state, anchor=vi)
             metrics.update(ba_metrics)
@@ -825,6 +846,15 @@ class SfMPipeline:
                             st, done_b, exclude, anchor=bi,
                             run_ba_every_view=run_ba_every_view, max_new_views=1,
                         )
+                        loop = self._seed_loop_gaps(st2, bi, bj, done_b, pair_of)
+                        if loop is not None and loop[1] < loop[0]:
+                            log.warning(
+                                "seed (%d, %d) basin %d: its rotation is %.2f deg from the pair's basin "
+                                "that the loop through view %s picks and %.2f deg from the other — "
+                                "rejecting seed", bi, bj, basin, loop[0], sorted(done_b - {bi, bj}), loop[1],
+                            )
+                            profiling.count("seeds_loop_rejected")
+                            continue
                         if len(done_b) >= 3:
                             log.info(
                                 "seed (%d, %d) basin %d validated by view %s (med angle %.2f deg)",
@@ -839,6 +869,62 @@ class SfMPipeline:
                         )
         return None
 
+    def _seed_loop_gaps(self, st, bi: int, bj: int, done_b: set, pair_of) -> Optional[Tuple[float, float]]:
+        """For a seed pair validated by one third view w: the angles (deg)
+        from the state's relative rotation bi -> bj to the seed pair's two
+        scored basins (pair scoring's two-view estimates), first the basin
+        that the loop through w picks: the nearer to the rotation composed
+        from the better-supported basin (more inliers) of (bi, w) and of
+        (w, bj); where a pair's basins tie in support, every such loop must
+        pick the same basin. None where no single view validated the seed,
+        a pair through w is missing or its better basin holds fewer than
+        `min_pair_matches` inliers, or the loops pick apart.
+
+        A departure from the reference, which keeps every seed a third view
+        registers against. On the 20-view arc a seed pair's bootstrap can
+        land in the spurious epipolar basin (rotation 4.5-6.7 degrees,
+        translation 93-105 degrees off) even where pair scoring's better
+        basin of the pair is the true one; view 2 registers against it and
+        the map drifts to an ATE of 5-16%. There the seed's rotation lies
+        nearer the pair's other basin than the one the loop picks, where a
+        true seed's lies within a quarter degree of the picked one. The rule
+        compares distances and holds no threshold of its own. On the V=6
+        courtyard with lens distortion every pair's two basins hold every
+        inlier, and the four loops pick apart."""
+        scores = self._ctx.get("scores")
+        if len(done_b) != 3 or scores is None:
+            return None
+        (w,) = sorted(done_b - {bi, bj})
+        p_iw, p_wj, p_ij = (pair_of.get((min(a, b), max(a, b))) for a, b in ((bi, w), (w, bj), (bi, bj)))
+        if p_iw is None or p_wj is None or p_ij is None:
+            return None
+
+        def basins(p, a, b):  # the pair's two basin rotations, camera a -> b
+            return scores.R_rel[p] if a < b else scores.R_rel[p].transpose(-1, -2)
+
+        def gap(A, B):  # rotations (..., 3, 3), (..., 3, 3) -> degrees apart
+            c = ((A * B).sum((-1, -2)) - 1.0) / 2.0
+            return torch.rad2deg(torch.arccos(torch.clamp(c, -1.0, 1.0)))
+
+        n_iw, n_wj = scores.n_inliers[p_iw], scores.n_inliers[p_wj]
+        # Every loop of better-supported basins (both, where a pair's tie)
+        # and the seed pair's basin each picks.
+        loops = torch.einsum("kab,lbc->klac", basins(p_wj, w, bj), basins(p_iw, bi, w))
+        better = (n_wj == n_wj.max())[:, None] & (n_iw == n_iw.max())[None, :]
+        pair = basins(p_ij, bi, bj)
+        picks = torch.argmin(gap(pair[None, None], loops[:, :, None]), dim=-1)
+        first = torch.where(better, picks, 2).min()
+        R = exp_so3(st.cameras[[bi, bj], :3])
+        to_seed = gap(pair, (R[1] @ R[0].T)[None])
+        decisive = (
+            (first == torch.where(better, picks, -1).max())
+            & (torch.minimum(n_iw.max(), n_wj.max()) >= self.config.matching.min_pair_matches)
+        )
+        decisive, g_picked, g_other = torch.stack(
+            [decisive.to(to_seed.dtype), to_seed[first], to_seed[1 - first]]
+        ).tolist()
+        return (g_picked, g_other) if decisive else None
+
     def _grow_component(
         self,
         state: ReconstructionState,
@@ -851,6 +937,7 @@ class SfMPipeline:
         guided_ctx=None,
         metrics: Optional[Dict[str, float]] = None,
         guided_block: Optional[List[int]] = None,
+        retry_failed: bool = False,
     ) -> ReconstructionState:
         """Grow one component by PnP registration + triangulation (the
         reference's addMoreViews loop, src/Sfm.cpp:893-1009); `done` is
@@ -862,7 +949,9 @@ class SfMPipeline:
         guided bridge registration (`_guided_attempt`), counted in
         metrics["n_guided_registered"]. The views registered from the first
         guided success on are appended to `guided_block`: their placement
-        hangs off a pose built on 2D evidence."""
+        hangs off a pose built on 2D evidence. `retry_failed` is
+        `register_view_blind`'s; a view whose pick fails blind is noted in
+        `_failed_blind` for the straggler sweep."""
         c = self._ctx
         V = state.n_views
         cfg = self.config
@@ -892,11 +981,16 @@ class SfMPipeline:
                     len(done) + 1 >= ba_cfg.local_ba_min_views
                     and (n_grown + 1) % ba_cfg.global_ba_every != 0
                 )
-                state, (ok, n_inl, n_support, n_pts, _) = register_adjust_step(
+                state, (ok, n_inl, n_support, n_pts, _, failed_blind) = register_adjust_step(
                     self._next_key(), state, new_view, sorted(done), c["tables"], c["kp"].xy,
                     c["colors"], c["pp"], c["K"], c["dist"], c["max_dim"], cfg, fix,
                     new_view if use_local else None, run_ba=run_ba_every_view,
+                    retry_failed=retry_failed,
                 )
+                if failed_blind:
+                    self._failed_blind.add(new_view)
+                else:
+                    self._failed_blind.discard(new_view)
                 guided = False
                 if not ok and guided_ctx is not None:
                     gr = self._guided_attempt(state, new_view, done, guided_ctx, size_pts)

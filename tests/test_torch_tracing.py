@@ -3,15 +3,20 @@ root span "set" per run, spans nested inside their parents' intervals, the
 stage spans equal to the `t_*` timers, the step spans and counters under
 them, nothing recorded for a run that raises or outside a run, no tensor
 attributes, spans on the wall clock that torch.profiler stamps its events
-with, and threads that record apart.
+with, and threads that record apart. The same run with local-window BA
+and the rotation-averaging reinit switched on at V=6 holds the `reinit`
+span inside `final_ba`, the `reinit_applied` counter and the `ba` spans
+marked `local`.
 
 The traced run is the port's V=6 courtyard run of tests/test_torch_slice.py
 (240x320, 1,024 keypoints) on the CPU.
 """
+import dataclasses
+
 import pytest
 import torch
 
-from sfm_danpipeline_torch.config import FeatureConfig, PipelineConfig
+from sfm_danpipeline_torch.config import BAConfig, FeatureConfig, PipelineConfig
 from sfm_danpipeline_torch.pipeline.sfm import SfMPipeline
 from sfm_danpipeline_torch.utils import profiling
 from sfm_danpipeline_torch.utils.synthscene import make_courtyard_scene
@@ -173,3 +178,53 @@ def test_threads_record_apart():
         assert trace["counters"] == {"c": 5}
     assert len(profiling.recent_runs()) == min(before + n_threads * n_runs, profiling.RECENT_RUNS)
     assert profiling.current() is None
+
+
+@pytest.fixture(scope="module")
+def v6_reinit():
+    """The V=6 run again with local-window BA from the 4th view and the
+    rotation-averaging reinit from 6 registered views, so both run."""
+    scene = make_courtyard_scene(**V6_SCENE)
+    ba = dataclasses.replace(BAConfig(), local_ba_min_views=4, rotavg_min_views=6)
+    cfg = PipelineConfig(features=FeatureConfig(max_keypoints=V6_MAX_KEYPOINTS), ba=ba)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        res = SfMPipeline(cfg, device="cpu").run(scene.images, scene.intrinsics)
+    finally:
+        torch.set_num_threads(threads)
+    assert len(res.registered_views) >= 6
+    return res
+
+
+def test_reinit_and_local_ba_spans(v6_reinit):
+    spans = v6_reinit.trace["spans"]
+    root = spans[0]
+    assert [s["name"] for s in spans if s["parent"] == root["index"]] == list(STAGES)
+    (final_ba,) = _by_name(v6_reinit.trace, "final_ba")
+    (reinit,) = _by_name(v6_reinit.trace, "reinit")
+    assert reinit["parent"] == final_ba["index"]
+    assert reinit["attrs"]["n_registered"] == len(v6_reinit.registered_views)
+    applied = reinit["attrs"]["applied"]
+    assert isinstance(applied, bool)
+    assert v6_reinit.trace["counters"]["reinit_applied"] == int(applied)
+    assert v6_reinit.metrics.get("rotavg_applied", 0.0) == float(applied)
+    # Where the reinit built a candidate, its three polishing solves sit
+    # inside the span.
+    inside = [s for s in _by_name(v6_reinit.trace, "ba") if s["parent"] == reinit["index"]]
+    assert len(inside) in (0, 3)
+    assert ("rotavg_applied" in v6_reinit.metrics) == (len(inside) == 3)
+    local = [s for s in _by_name(v6_reinit.trace, "ba") if s["attrs"]["local"]]
+    assert local
+    stage_of = {s["index"]: s["name"] for s in spans if s["parent"] == root["index"]}
+    for s in local:
+        p = s
+        while p["parent"] != root["index"]:
+            p = spans[p["parent"]]
+        assert stage_of[p["index"]] in ("baseline", "incremental", "components")
+
+
+def test_reinit_and_stragglers_absent_below_their_thresholds(v6):
+    assert not _by_name(v6.trace, "reinit") and "reinit_applied" not in v6.trace["counters"]
+    assert not _by_name(v6.trace, "stragglers") and "straggler_views" not in v6.trace["counters"]
+    assert not [s for s in _by_name(v6.trace, "ba") if s["attrs"]["local"]]

@@ -26,6 +26,17 @@ courtyard arc, on the reference's keypoints and strict matches, with the
 essential key pair scoring gives that pair at `--seed`, and prints each
 basin candidate's inlier counts and the rotation gap between the packages.
 
+    python3 tools/seed_parity.py bench --seeds S ... [--workload arc20-sift.sparse]
+        [--package reference port injected] [--trail-dir DIR]
+
+renders one benchmark cell's scene (portbench/reference/scene.py, on the
+CPU) at each texture seed and runs each package's SfMPipeline on it on the
+CPU with the configuration's PipelineConfig and its default key (`injected`:
+the port on the reference's keypoints and matches). Per run it prints the
+outcome (views, components, merges with their gates, `rotavg_applied`, RMS,
+points, ATE) and writes the decision trail to
+`<workload>_seed<S>_<package>.log` under `--trail-dir`.
+
     python3 tools/seed_parity.py ring --seeds 0 1 2 [--package reference|port|both]
         [--trail-dir DIR] [--device cpu|cuda] [--front-end F.npz]
 
@@ -80,7 +91,8 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import ring_capture  # noqa: E402  (tools/, the script's own directory)
 
@@ -749,6 +761,122 @@ def _state_gap(want, st):
 
 
 
+def _bench_scene(workload, seed):
+    """The benchmark's scene of `workload` at texture seed `seed`, rendered
+    on the CPU (portbench/reference/scene.py), and the configuration's
+    PipelineConfig overrides."""
+    from portbench.harness import Bench
+    from portbench.reference import scene as scene_mod
+
+    bench = Bench(ROOT)
+    config = bench.config(bench.cell(workload))
+    return scene_mod.render(seed=seed, device="cpu", **config["scene"]), config.get("pipeline", {})
+
+
+def _configured(config_module, overrides):
+    """config_module.PipelineConfig() with the benchmark's "group.field"
+    overrides applied (portbench/program.py pipeline_config)."""
+    cfg = config_module.PipelineConfig()
+    for key, value in overrides.items():
+        group, _, field = key.partition(".")
+        if field:
+            value = dataclasses.replace(getattr(cfg, group), **{field: value})
+        cfg = dataclasses.replace(cfg, **{group: value})
+    return cfg
+
+
+def bench(workload, seeds, packages, trail_dir):
+    """Both packages on the CPU on one benchmark cell's scene at each
+    texture seed (module docstring)."""
+    import types
+
+    from sfm_danpipeline_torch.io.calibration import Intrinsics
+    from sfm_danpipeline_torch.io.images import ImageBatch
+
+    for seed in seeds:
+        sc, overrides = _bench_scene(workload, seed)
+        V, H, W = sc.gray.shape
+        images = ImageBatch(
+            gray=sc.gray, color=np.repeat(sc.gray[..., None], 3, axis=-1),
+            sizes=np.tile(np.array([[H, W]], np.int32), (V, 1)),
+            paths=tuple(f"view_{v:04d}" for v in range(V)),
+        )
+        intrinsics = Intrinsics(K=sc.K.astype(np.float32), dist=np.zeros((5,), np.float32))
+        scene = types.SimpleNamespace(images=images, intrinsics=intrinsics, centers=sc.centers)
+        for package in packages:
+            if package == "reference":
+                from sfm_danpipeline_tpu import config as config_mod
+                from sfm_danpipeline_tpu.pipeline import sfm as sfm_mod
+
+                merge_name = "_merge_attempt_step"
+
+                def merge_stats(a, ms):
+                    return [int(v) for v in np.nonzero(np.asarray(a[3]))[0]], ring_capture.merge_stats(ms)
+            else:
+                from sfm_danpipeline_torch import config as config_mod
+                from sfm_danpipeline_torch.pipeline import sfm as sfm_mod
+
+                merge_name = "merge_attempt_step"
+
+                def merge_stats(a, ms):
+                    return list(a[3]), ms
+
+            cfg = _configured(config_mod, overrides)
+            kw = {}
+            if package == "reference":
+                pipe = sfm_mod.SfMPipeline(cfg)
+            else:
+                pipe = sfm_mod.SfMPipeline(cfg, device="cpu")
+                if package == "injected":
+                    from sfm_danpipeline_torch import interop
+                    from sfm_danpipeline_tpu import config as j_config
+
+                    kp, matches = _reference_front_end(scene, _configured(j_config, overrides))
+                    fields = ("xy", "sigma", "angle", "response", "descriptors", "valid")
+                    kw = dict(
+                        precomputed_keypoints=interop.keypoints_from_numpy(
+                            {k: np.asarray(getattr(kp, k)) for k in fields}
+                        ),
+                        precomputed_matches=interop.matches_from_numpy(
+                            {k: np.asarray(getattr(matches, k)) for k in ("idx_a", "idx_b", "dist", "lowe", "valid")}
+                        ),
+                    )
+            trail = _Trail()
+            logger = logging.getLogger(sfm_mod.__name__.split(".")[0])
+            logger.addHandler(trail)
+            logger.setLevel(logging.INFO)
+            tag = f"{workload} seed {seed}, {package}"
+            t0 = time.time()
+            try:
+                with _instrument(sfm_mod.SfMPipeline, sfm_mod, merge_name, merge_stats) as (seed_log, merges):
+                    try:
+                        res = pipe.run(images, intrinsics, **kw)
+                    except Exception as e:  # noqa: BLE001 - a raise is an outcome here
+                        print(f"{tag}: raises {type(e).__name__}: {e}", flush=True)
+                        res = None
+                    if res is not None:
+                        m = res.metrics
+                        cams = res.state.cameras
+                        cams = cams.cpu().numpy() if hasattr(cams, "cpu") else np.asarray(cams, np.float32)
+                        print(f"{tag}: {_outcome(res, scene, cams)}", flush=True)
+                        print(
+                            f"{tag}: registered {sorted(res.registered_views)}, {m['n_components']} component(s), "
+                            f"{m['n_merged_components']} merged, rotavg_applied {m.get('rotavg_applied')}, "
+                            f"{pipe._key_n} registration keys",
+                            flush=True,
+                        )
+                        for views, ms in merges:
+                            print(f"{tag}: merge of {views}: {_merge_line(ms)}", flush=True)
+            finally:
+                logger.removeHandler(trail)
+            print(f"{tag}: {time.time() - t0:.1f} s", flush=True)
+            if trail_dir:
+                os.makedirs(trail_dir, exist_ok=True)
+                with open(os.path.join(trail_dir, f"{workload}_seed{seed}_{package}.log"), "w") as f:
+                    f.write("\n".join(trail.lines) + "\n")
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -784,7 +912,17 @@ def main():
     pb.add_argument("--views", type=int, default=20)
     pb.add_argument("--ring-fraction", type=float, default=0.4)
     pb.add_argument("--seed", type=int, default=0)
+    bp = sub.add_parser("bench")
+    bp.add_argument("--workload", default="arc20-sift.sparse")
+    bp.add_argument("--seeds", type=int, nargs="+", required=True)
+    bp.add_argument(
+        "--package", nargs="+", choices=["reference", "port", "injected"], default=["reference", "port"],
+        help="injected: the port on the reference's keypoints and matches",
+    )
+    bp.add_argument("--trail-dir", default=None, help="write each run's decision trail here")
     args = ap.parse_args()
+    if args.cmd == "bench":
+        return bench(args.workload, args.seeds, args.package, args.trail_dir)
     if args.cmd == "ring" or (args.cmd == "injected" and args.mode == "ring"):
         injected_ring = args.cmd == "injected"
         if injected_ring and args.float64_fits:
