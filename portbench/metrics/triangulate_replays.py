@@ -1,0 +1,14 @@
+"""triangulate_replays: the program's counter `triangulate_graph_replays`
+(every pair step of `triangulate_new_view_all` replayed as its CUDA graph,
+pipeline/incremental.py `_TriangulateGraph`), summed over the window's sets
+and divided by their number (per set). None where the window's runs cannot
+be read from the program (portbench/spans.py), or where none of them has the
+counter: a program that does not count it."""
+from portbench.spans import count_per_set, window_runs
+
+
+def read(record):
+    runs = window_runs(record)
+    if runs is None or not any("triangulate_graph_replays" in run["counters"] for run in runs):
+        return None
+    return count_per_set(record, "triangulate_graph_replays")

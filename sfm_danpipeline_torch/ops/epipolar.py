@@ -25,6 +25,7 @@ from sfm_danpipeline_torch.ops.reduce import fixed_sum
 from sfm_danpipeline_torch.ops.select import top_k_indices
 from sfm_danpipeline_torch.ops.triangulation import pose_matrix, triangulate_dlt
 from sfm_danpipeline_torch.utils import profiling
+from sfm_danpipeline_torch.utils.cuda_graphs import cached_graph
 
 
 class RelativePose(NamedTuple):
@@ -260,16 +261,9 @@ _POLISH_GRAPHS_KEPT = 4
 
 def _polish_graph(key, make):
     """The graph kept for `key`: None at the key's first use, `make()` at its
-    second, the same graph after. Forgets the least recently used key
-    beyond `_POLISH_GRAPHS_KEPT`."""
-    seen = key in _POLISH_GRAPHS
-    graph = _POLISH_GRAPHS.pop(key, None)
-    if seen and graph is None:
-        graph = make()
-    _POLISH_GRAPHS[key] = graph
-    while len(_POLISH_GRAPHS) > _POLISH_GRAPHS_KEPT:
-        _POLISH_GRAPHS.popitem(last=False)
-    return graph
+    second, the same graph after (`utils/cuda_graphs.py cached_graph`, the
+    last `_POLISH_GRAPHS_KEPT` keys kept)."""
+    return cached_graph(_POLISH_GRAPHS, _POLISH_GRAPHS_KEPT, key, make)
 
 
 def _polish(R0, t0, band0, x1, x2, valid, refit_n2):

@@ -309,7 +309,7 @@ def guided_bridge_register(
             state, cameras=cameras, camera_valid=camera_valid, track_feat=track_feat,
             feat_to_point=feat_to_point,
         )
-        state, _ = triangulate_new_view_all(
+        state = triangulate_new_view_all(
             state, new_view, done_views, feat_tab_a, feat_tab_b, valid_tab_strict,
             keypoints_xy, colors, K_mat, dist, config,
         )

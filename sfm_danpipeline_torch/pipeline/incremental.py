@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+from collections import OrderedDict
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -32,6 +33,7 @@ from sfm_danpipeline_torch.pipeline.tracks import (
     live_observations,
 )
 from sfm_danpipeline_torch.utils import profiling
+from sfm_danpipeline_torch.utils.cuda_graphs import cached_graph
 
 log = logging.getLogger("sfm_danpipeline_torch")
 
@@ -248,34 +250,105 @@ def register_view_blind(
 
 def triangulate_new_view(
     state: ReconstructionState,
-    new_view: int,
-    done_view: int,
-    feat_new: torch.Tensor,
-    feat_done: torch.Tensor,
-    valid: torch.Tensor,
+    new_view: torch.Tensor,
+    done_view: torch.Tensor,
+    feat_tab_a: torch.Tensor,
+    feat_tab_b: torch.Tensor,
+    valid_tab: torch.Tensor,
     keypoints_xy: torch.Tensor,
     colors: torch.Tensor,
     K: torch.Tensor,
     dist: torch.Tensor,
     config: PipelineConfig,
-) -> Tuple[ReconstructionState, torch.Tensor]:
-    """Triangulate matches (new_view, done_view) with the current poses and
-    merge them into the cloud. Returns (state, n_added_or_fused)."""
-    cam_n = state.cameras[new_view]
-    cam_d = state.cameras[done_view]
-    pn = keypoints_xy[new_view][feat_new.long()]
-    pd = keypoints_xy[done_view][feat_done.long()]
+) -> ReconstructionState:
+    """Triangulate the matches (new_view, done_view) of the oriented tables
+    with the current poses and merge them into the cloud. The two views are
+    (1,) long tensors on the state's device: every per-pair index is a
+    gather, so the step reads nothing back to the host and is the body of
+    the per-pair CUDA graph (`_TriangulateGraph`)."""
+    feat_new = feat_tab_a[new_view, done_view][0]
+    feat_done = feat_tab_b[new_view, done_view][0]
+    cam_n = state.cameras[new_view][0]
+    cam_d = state.cameras[done_view][0]
+    pn = keypoints_xy[new_view, feat_new.long()]
+    pd = keypoints_xy[done_view, feat_done.long()]
     X, keep = triangulate_and_filter(
         exp_so3(cam_n[:3]), cam_n[3:], exp_so3(cam_d[:3]), cam_d[3:],
         undistort_points(pn, K, dist), undistort_points(pd, K, dist), pn, pd, K,
-        valid & state.camera_valid[new_view] & state.camera_valid[done_view],
+        valid_tab[new_view, done_view][0] & state.camera_valid[new_view]
+        & state.camera_valid[done_view],
         max_error_px=config.geometry.max_reprojection_error_px,
     )
-    state = add_points(
-        state, X, colors[new_view][feat_new.long()], new_view, feat_new,
+    return add_points(
+        state, X, colors[new_view, feat_new.long()], new_view, feat_new,
         done_view, feat_done, keep, merge_distance=config.geometry.merge_distance,
     )
-    return state, torch.sum(keep)
+
+
+# The fields of the state a pair step writes.
+_POINT_FIELDS = (
+    "points_xyz", "points_rgb", "points_valid", "track_feat", "feat_to_point", "n_points",
+)
+
+
+class _TriangulateGraph:
+    """`triangulate_new_view` captured as one CUDA graph at one shape. The
+    graph reads the pair from a static (2,) index buffer, the poses, tables,
+    keypoints, colours, K and dist from static copies, and the point fields
+    from static buffers; it ends by copying its new point fields into those
+    same buffers, so consecutive replays chain the state on the device with
+    no host work between pairs. A call copies its inputs in once, replays
+    once per done view and clones the point fields out, since the pipeline
+    keeps snapshots of states. A replay runs the eager step's kernels in the
+    same order on the same values, so the state is the eager loop's bit for
+    bit."""
+
+    def __init__(self, state: ReconstructionState, inputs, config: PipelineConfig):
+        dev = state.device
+        self.views = torch.arange(state.n_views, device=dev)
+        self.pair = torch.zeros(2, dtype=torch.long, device=dev)
+        self.points = {f: torch.empty_like(getattr(state, f)) for f in _POINT_FIELDS}
+        self.inputs = [torch.empty_like(a, memory_format=torch.contiguous_format) for a in inputs]
+        cameras, camera_valid, *tables = self.inputs
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            st = dataclasses.replace(
+                state, cameras=cameras, camera_valid=camera_valid, **self.points
+            )
+            st = triangulate_new_view(st, self.pair[0:1], self.pair[1:2], *tables, config)
+            for f, buf in self.points.items():
+                buf.copy_(getattr(st, f))
+        profiling.count("triangulate_graph_captures")
+
+    def __call__(self, state: ReconstructionState, new_view: int, done_views, inputs):
+        for f, buf in self.points.items():
+            buf.copy_(getattr(state, f))
+        for buf, a in zip(self.inputs, inputs):
+            buf.copy_(a)
+        self.pair[0:1].copy_(self.views[new_view:new_view + 1])
+        for d in done_views:
+            d = int(d)
+            self.pair[1:2].copy_(self.views[d:d + 1])
+            self.graph.replay()
+        profiling.count("triangulate_graph_replays", len(done_views))
+        return dataclasses.replace(state, **{f: buf.clone() for f, buf in self.points.items()})
+
+
+# The pair step's shapes of this process, the most recently used last: a
+# captured graph, or None for a shape seen once (`utils/cuda_graphs.py`).
+_TRIANGULATE_GRAPHS: "OrderedDict[tuple, Optional[_TriangulateGraph]]" = OrderedDict()
+_TRIANGULATE_GRAPHS_KEPT = 4
+
+
+def _triangulate_eager(state, new_view, done_views, inputs, config):
+    """The pair steps one after another, each dispatched op by op."""
+    views = torch.arange(state.n_views, device=state.device)
+    for d in done_views:
+        d = int(d)
+        state = triangulate_new_view(
+            state, views[new_view:new_view + 1], views[d:d + 1], *inputs, config
+        )
+    return state
 
 
 def triangulate_new_view_all(
@@ -290,17 +363,32 @@ def triangulate_new_view_all(
     K: torch.Tensor,
     dist: torch.Tensor,
     config: PipelineConfig,
-) -> Tuple[ReconstructionState, torch.Tensor]:
-    """Triangulate the new view against every done view, in order."""
-    total = torch.zeros((), dtype=torch.int64, device=state.device)
+) -> ReconstructionState:
+    """Triangulate the new view against every done view, in order. On the
+    card a pair step is some 700 small ops whose host dispatch is their
+    whole cost, so from a shape's second call on every pair replays one
+    CUDA graph (`_TriangulateGraph`, one per shape and per the two config
+    values the step reads); a shape's first call, and every call on the
+    CPU, runs the steps eagerly."""
+    tables = (feat_tab_a, feat_tab_b, valid_tab, keypoints_xy, colors, K, dist)
     with profiling.span("triangulate", done_views=len(done_views)):
-        for d in done_views:
-            state, n = triangulate_new_view(
-                state, new_view, int(d), feat_tab_a[new_view, d], feat_tab_b[new_view, d],
-                valid_tab[new_view, d], keypoints_xy, colors, K, dist, config,
+        if state.device.type != "cuda":
+            return _triangulate_eager(state, new_view, done_views, tables, config)
+        inputs = (state.cameras, state.camera_valid, *tables)
+        g = config.geometry
+        key = (
+            state.capacity, state.n_views, state.max_keypoints, feat_tab_a.shape[-1],
+            tuple(a.dtype for a in inputs), state.device.index,
+            g.max_reprojection_error_px, g.merge_distance,
+        )
+        with torch.cuda.device(state.device):
+            graph = cached_graph(
+                _TRIANGULATE_GRAPHS, _TRIANGULATE_GRAPHS_KEPT, key,
+                lambda: _TriangulateGraph(state, inputs, config),
             )
-            total = total + n
-    return state, total
+            if graph is None:
+                return _triangulate_eager(state, new_view, done_views, tables, config)
+            return graph(state, new_view, done_views, inputs)
 
 
 def register_and_triangulate(
@@ -334,7 +422,7 @@ def register_and_triangulate(
     profiling.annotate(sp, ok=ok)
     profiling.count("pnp_failed", int(not ok))
     if ok:
-        state, _ = triangulate_new_view_all(
+        state = triangulate_new_view_all(
             state, new_view, done_views, feat_tab_a, feat_tab_b, valid_tab_strict,
             keypoints_xy, colors, K, dist, config,
         )

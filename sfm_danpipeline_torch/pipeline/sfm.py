@@ -273,7 +273,7 @@ def merge_attempt_step(
             med1, _ = cross_med(cand)
             if med1 <= bound:
                 for v in sorted(b_views):
-                    cand, _ = triangulate_new_view_all(
+                    cand = triangulate_new_view_all(
                         cand, v, a_views, ft_a, ft_b, vt_strict, keypoints_xy, colors,
                         K, dist, config,
                     )
@@ -1272,7 +1272,7 @@ class SfMPipeline:
         state = retriangulate_points(state, keypoints_xy, _k_matrix(state.focal, pp))
         ft_a, ft_b, vt_strict = tables[:3]
         for v in done_sorted:
-            state, _ = triangulate_new_view_all(
+            state = triangulate_new_view_all(
                 state, v, done_sorted, ft_a, ft_b, vt_strict, keypoints_xy, colors,
                 K, dist, cfg,
             )

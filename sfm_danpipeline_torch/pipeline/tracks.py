@@ -12,6 +12,7 @@ snapshots of states across seed attempts).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import torch
@@ -89,22 +90,26 @@ def scatter_set_last(
 
     The reference's scatters (`.at[].set`) are last-wins with duplicate
     indices on XLA; a plain index_put leaves the winner unspecified (and
-    nondeterministic on CUDA), so the winner is picked explicitly."""
-    out = dst.clone()
+    nondeterministic on CUDA), so the winner is picked explicitly. Every
+    entry is written: a loser goes to one dump element past the end, which
+    is sliced off, so each real target is written once, by its winner.
+    Nothing is selected by a mask, so nothing is read back to the host (a
+    boolean index would synchronise) and the call can be captured in a CUDA
+    graph."""
     if cols is None:
-        target = out.view(dst.shape[0], -1)
         lin = rows.long()
-        vals = vals.reshape(lin.shape[0], -1)
+        n, width = dst.shape[0], math.prod(dst.shape[1:])
     else:
-        target = out.view(-1)
         lin = rows.long() * dst.shape[1] + cols.long()
+        n, width = dst.numel(), 1
     pos = torch.arange(lin.numel(), device=dst.device)
     winner = torch.full(
-        (target.shape[0],), -1, dtype=torch.long, device=dst.device
+        (n,), -1, dtype=torch.long, device=dst.device
     ).scatter_reduce(0, lin, pos, "amax")
-    keep = winner[lin] == pos
-    target[lin[keep]] = vals[keep].to(dst.dtype)
-    return out
+    dest = torch.where(winner[lin] == pos, lin, n)
+    out = torch.cat([dst.reshape(n, width), dst.new_zeros((1, width))])
+    out[dest] = vals.reshape(lin.shape[0], width).to(dst.dtype)
+    return out[:n].view(dst.shape)
 
 
 def add_points(
