@@ -853,8 +853,8 @@ def run_cli_akaze(scene, workdir):
     # registered: phase 9 resumes from it.
     save = SfMPipeline._save_ckpt
 
-    def save_and_copy(self, state, done, lost, anchor):
-        save(self, state, done, lost, anchor)
+    def save_and_copy(self, state, done, anchor):
+        save(self, state, done, anchor)
         if len(done) == RESUME_AT_VIEWS and not os.path.exists(ckpt_cut):
             shutil.copy(ckpt, ckpt_cut)
 
@@ -1372,7 +1372,7 @@ def run_ring(logdir):
             "registered %s, RMS %.4f px, %d points, ATE %.4f%%, rotavg_applied %s, %d keys"
             % (
                 tag, len(regs), RING_VIEWS, regs, m["ba_rms_px"], m["n_points"], ate,
-                m.get("rotavg_applied"), pipe._key_n, la["knn2"], len(ref["registered"]), RING_VIEWS,
+                m.get("rotavg_applied"), pipe._progress.key_n, la["knn2"], len(ref["registered"]), RING_VIEWS,
                 ref["registered"], ref["ba_rms_px"], ref["n_points"], ref["ate_pct"],
                 ref["rotavg_applied"], ref["key_n"],
             )

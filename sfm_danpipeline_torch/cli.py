@@ -27,8 +27,7 @@ steps under them (baseline.score, seed, seed.basin, pnp, triangulate, ba,
 merge). Its "counters" count seed basins tried and accepted
 (seed_basins, seed_basins_accepted), seeds validated by a third view
 (seeds_validated), PnP attempts and failures (pnp_attempts, pnp_failed),
-BA solves and their LM iterations (ba_solves, lm_iterations) and Sim(3)
-merge attempts and acceptances (merge_attempts, merges_accepted).
+and BA solves and their LM iterations (ba_solves, lm_iterations).
 
 Multi-process mode: launch one process per rank with the same arguments plus
 `--coordinator HOST:PORT --num-processes N --process-id I`. Each process

@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 from collections import OrderedDict
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -99,6 +99,19 @@ def epipolar_prefilter_table(
     out[pi, pj] = filt
     out[pj, pi] = filt
     return out
+
+
+class MatchTables(NamedTuple):
+    """One set's oriented (V, V, M) match tables: the loose-ratio matches'
+    feature ids in view a and in view b of each pair (a, b), the ratio
+    test's (strict) valid mask, and the loose valid mask after the epipolar
+    prefilter (`epipolar_prefilter_table`). Registration reads `loose`;
+    triangulation, the merge and the guided bridge read `strict`."""
+
+    feat_a: torch.Tensor
+    feat_b: torch.Tensor
+    strict: torch.Tensor
+    loose: Optional[torch.Tensor]
 
 
 def build_match_tables(

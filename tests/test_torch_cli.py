@@ -142,8 +142,8 @@ def test_mid_run_kill_and_resume(tmp_path):
     pipe = SfMPipeline(cfg, checkpoint_path=ckpt, device="cpu")
     orig = pipe._save_ckpt
 
-    def save_and_copy(state, done, lost, anchor):
-        orig(state, done, lost, anchor)
+    def save_and_copy(state, done, anchor):
+        orig(state, done, anchor)
         if len(done) == 4:
             shutil.copy(ckpt, cut)
 
@@ -176,8 +176,8 @@ def test_resume_refuses_a_checkpoint_without_key_n(tmp_path):
     with pytest.raises(ValueError, match="key_n"):
         pipe._load_ckpt(4)
     t_ckpt.save_state(path, init_state(4, 64, 256, 500.0, device="cpu"), key_n=np.int64(7), **extras)
-    _, done, _, _ = pipe._load_ckpt(4)
-    assert done == {0, 1} and pipe._key_n == 7
+    _, done, _, _, key_n = pipe._load_ckpt(4)
+    assert done == {0, 1} and key_n == 7
 
 
 # ---------------------------------------------------------------------------

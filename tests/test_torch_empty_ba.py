@@ -26,7 +26,7 @@ from sfm_danpipeline_torch import interop
 from sfm_danpipeline_torch.ba.problem import make_problem
 from sfm_danpipeline_torch.ba.solver import run_ba
 from sfm_danpipeline_torch.config import BAConfig, PipelineConfig
-from sfm_danpipeline_torch.pipeline.sfm import SfMPipeline, ba_step
+from sfm_danpipeline_torch.pipeline.sfm import SetInputs, SfMPipeline, ba_step
 from torch_testing import one_torch_thread  # noqa: F401
 
 
@@ -127,7 +127,10 @@ def test_accept_reinit_on_an_emptied_candidate_takes_the_references_decision(syn
         j_state(cand_np), j_state(snap_np), SimpleNamespace(xy=jnp.asarray(kp_xy)), jnp.asarray(pp), 0, "test",
     )
     pipe = SfMPipeline(PipelineConfig(), device="cpu")
-    pipe._ctx = dict(kp=SimpleNamespace(xy=torch.tensor(kp_xy)), pp=torch.tensor(pp))
+    pipe._inputs = SetInputs(
+        config=pipe.config, kp=SimpleNamespace(xy=torch.tensor(kp_xy)), colors=None, K=None, dist=None,
+        pp=torch.tensor(pp), max_dim=None, tables=None,
+    )
     _, m_t, applied_t = pipe._accept_reinit(
         interop.state_from_numpy(cand_np), interop.state_from_numpy(snap_np), 0, "test"
     )

@@ -22,6 +22,7 @@ steps wander along a flat valley, and the two packages' cameras ended
 they agree within 3e-6 at 1-8 threads.
 """
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -245,7 +246,8 @@ def merge_runs():
     from sfm_danpipeline_tpu.pipeline.tracks import ReconstructionState as JState
 
     from sfm_danpipeline_torch.config import FeatureConfig, PipelineConfig
-    from sfm_danpipeline_torch.pipeline.sfm import merge_attempt_step
+    from sfm_danpipeline_torch.pipeline.incremental import MatchTables
+    from sfm_danpipeline_torch.pipeline.sfm import SetInputs, merge_attempt_step
 
     ref = reference_v6()
     cfg = dataclasses.replace(
@@ -307,10 +309,14 @@ def merge_runs():
     tcfg = dataclasses.replace(
         tcfg, ba=dataclasses.replace(tcfg.ba, **MERGE_BA)
     )
+    inputs = SetInputs(
+        config=tcfg, kp=SimpleNamespace(xy=_t(ref.keypoints_xy)), colors=_t(ref.colors), K=_t(K),
+        dist=_t(dist), pp=_t(pp), max_dim=float(max(ref.scene.images.shape)),
+        tables=MatchTables(*(_t(a) for a in ref.tables), None),
+    )
     t_state, t_stats = merge_attempt_step(
         tkey, interop.state_from_numpy(st_a), interop.state_from_numpy(st_b), B_VIEWS, A_VIEWS,
-        tuple(_t(a) for a in ref.tables), _t(ref.keypoints_xy), _t(ref.colors), _t(pp), _t(K),
-        _t(dist), _t(fixv), tcfg,
+        inputs, _t(fixv),
     )
     return dict(
         j_state=j_state, j_stats=np.asarray(j_stats), j_sim=j_simres, t_state=t_state,

@@ -99,8 +99,8 @@ def _outcome(package, n_views, box_filter, max_keypoints, seed):
     ate = aligned_rmse(camera_centers(cams)[regs], gt) / float(np.linalg.norm(gt.max(0) - gt.min(0)))
     m = res.metrics
     return dict(
-        registered=regs, key_n=pipe._key_n, rms=m["ba_rms_px"], points=m["n_points"], ate=ate,
-        seed_pair=(m["baseline_pair_i"], m["baseline_pair_j"]), rotavg_applied=m.get("rotavg_applied"),
+        registered=regs, key_n=ring_capture.keys_taken(pipe), rms=m["ba_rms_px"], points=m["n_points"],
+        ate=ate, seed_pair=(m["baseline_pair_i"], m["baseline_pair_j"]), rotavg_applied=m.get("rotavg_applied"),
     )
 
 
@@ -122,7 +122,7 @@ def test_ring12_matches_reference():
         pipe, images, intrinsics, _ = _pipeline(package, 12, True, 1024, 0)
         with pytest.raises(RuntimeError, match="baseline reconstruction failed"):
             pipe.run(images, intrinsics)
-        keys.append(pipe._key_n)
+        keys.append(ring_capture.keys_taken(pipe))
     assert keys[0] == keys[1] > 0
 
 
@@ -164,11 +164,10 @@ def _hold_steps(n_views, box_filter, max_keypoints, seed, first, atol):
     config = _config(PORT, max_keypoints, seed)
     ref = [int(x) for x in np.asarray(step(*a1)[1])]
     p = ring_capture.step_args(a1, config)
-    ft_a, ft_b, vt_strict, vt_loose = p["tables"]
+    c = p["inputs"]
     _, ok, n_inl, n_sup = register_view(
-        p["key"], p["state"], p["new_view"], p["done_views"], ft_a, ft_b, vt_loose,
-        p["keypoints_xy"], p["K"], p["dist"], p["image_max_dim"], p["config"],
-        valid_tab_strict=vt_strict,
+        p["key"], p["state"], p["new_view"], p["done_views"], c.tables.feat_a, c.tables.feat_b,
+        c.tables.loose, c.kp.xy, c.K, c.dist, c.max_dim, c.config, valid_tab_strict=c.tables.strict,
     )
     assert [int(ok), int(n_inl), int(n_sup)] == ref[:3]
     out, stats = register_adjust_step(**ring_capture.step_args(a0, config))

@@ -11,6 +11,8 @@ scores, called directly whatever `rotavg_min_views` is; the cameras it
 produces must agree within 1e-3 rad in rotation and 1e-3 relative in
 center position.
 """
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -144,7 +146,8 @@ def test_rotavg_initialize_matches_on_reference_state():
 
     from sfm_danpipeline_torch.config import FeatureConfig, PipelineConfig
     from sfm_danpipeline_torch.ops.lie import exp_so3
-    from sfm_danpipeline_torch.pipeline.sfm import SfMPipeline
+    from sfm_danpipeline_torch.pipeline.incremental import MatchTables
+    from sfm_danpipeline_torch.pipeline.sfm import SetInputs, SfMPipeline
 
     ref = reference_v6()
     cfg = ref.config
@@ -162,11 +165,14 @@ def test_rotavg_initialize_matches_on_reference_state():
     )
     assert st_j is not ref.result.state  # the reinit ran
     tcfg = PipelineConfig(features=FeatureConfig(max_keypoints=cfg.features.max_keypoints))
-    st_t = SfMPipeline(tcfg, device="cpu")._rotavg_initialize(
-        interop.state_from_numpy(ref.state), done, interop.scores_from_numpy(scores),
-        ref.pi, ref.pj, tuple(_t(a) for a in ref.tables), _t(ref.keypoints_xy),
-        _t(ref.colors), _t(pp), _t(K), _t(dist),
+    pipe = SfMPipeline(tcfg, device="cpu")
+    pipe._inputs = SetInputs(
+        config=tcfg, kp=SimpleNamespace(xy=_t(ref.keypoints_xy)), colors=_t(ref.colors), K=_t(K),
+        dist=_t(dist), pp=_t(pp), max_dim=float(max(ref.scene.images.shape)),
+        tables=MatchTables(*(_t(a) for a in ref.tables), None), scores=interop.scores_from_numpy(scores),
+        pair_of={(int(a), int(b)): n for n, (a, b) in enumerate(zip(ref.pi, ref.pj))},
     )
+    st_t = pipe._rotavg_initialize(interop.state_from_numpy(ref.state), done)
     cams_j, cams_t = np.asarray(st_j.cameras), st_t.cameras.numpy()
     regs = sorted(done)
     # Gauge fix: every rotation relative to view 0's.

@@ -38,8 +38,8 @@ from sfm_danpipeline_torch.ops.lie import exp_so3, log_so3
 from sfm_danpipeline_torch.ops.matching import PairMatches
 from sfm_danpipeline_torch.ops.sift import Keypoints
 from sfm_danpipeline_torch.pipeline.bootstrap import score_pairs
-from sfm_danpipeline_torch.pipeline.incremental import build_match_tables
-from sfm_danpipeline_torch.pipeline.sfm import SfMPipeline
+from sfm_danpipeline_torch.pipeline.incremental import MatchTables, build_match_tables
+from sfm_danpipeline_torch.pipeline.sfm import SetInputs, SetProgress, SfMPipeline
 from sfm_danpipeline_torch.pipeline.tracks import prune_observations, retriangulate_points
 from sfm_danpipeline_torch.utils.metrics import aligned_rmse, camera_centers
 from torch_testing import one_torch_thread  # noqa: F401
@@ -127,10 +127,6 @@ def _matches(rng, feat_of, m_slots, min_common):
     return np.asarray(pi), np.asarray(pj), matches
 
 
-class _Intr:
-    fx = 800.0
-
-
 def _pipeline(kp_xy, kp_valid, matches, pi, pj, max_points, seed):
     """An SfMPipeline on the CPU with the context `run` would have built
     from these keypoints and matches (the reference tests' grow_args)."""
@@ -145,16 +141,15 @@ def _pipeline(kp_xy, kp_valid, matches, pi, pj, max_points, seed):
         descriptors=torch.zeros((V, kmax, 128)), valid=torch.tensor(kp_valid),
     )
     ft_a, ft_b, vt = build_match_tables(matches, pi, pj, V)
-    pipe._keys = prng.split(prng.key(seed), V * 32)
-    pipe._key_n = 0
-    pipe._ctx = dict(
-        tables=(ft_a, ft_b, vt, vt), kp=kp,
-        colors=torch.zeros((V, kmax, 3)), pp=torch.tensor([320.0, 240.0]),
+    pipe._progress = SetProgress(keys=prng.split(prng.key(seed), V * 32))
+    pipe._inputs = SetInputs(
+        config=cfg, kp=kp, colors=torch.zeros((V, kmax, 3)),
         K=torch.tensor([[800.0, 0, 320.0], [0, 800.0, 240.0], [0, 0, 1.0]]), dist=torch.zeros(5),
-        max_dim=640.0, image_size=(480, 640),
+        pp=torch.tensor([320.0, 240.0]), max_dim=640.0, tables=MatchTables(ft_a, ft_b, vt, vt),
+        image_size=(480, 640), strict=matches,
+        pair_of={(int(a), int(b)): n for n, (a, b) in enumerate(zip(pi, pj))}, focal=800.0,
     )
-    pair_of = {(int(a), int(b)): n for n, (a, b) in enumerate(zip(pi, pj))}
-    return pipe, pair_of
+    return pipe
 
 
 def _ate_frac(state, R_all, t_all):
@@ -163,11 +158,11 @@ def _ate_frac(state, R_all, t_all):
     return aligned_rmse(camera_centers(state.cameras.numpy()), C_gt) / diam
 
 
-def _grow(pipe, pair_of, matches, seed_pairs):
-    seed = pipe._try_seed(seed_pairs, set(), matches, pair_of, _Intr(), True)
+def _grow(pipe, seed_pairs):
+    seed = pipe._try_seed(seed_pairs, set())
     assert seed is not None, "synthetic seed failed"
     state, done, _ = seed
-    state = pipe._grow_component(state, done, set(), anchor=0, run_ba_every_view=True)
+    state = pipe._grow_component(state, done, set(), anchor=0)
     return state, done
 
 
@@ -175,8 +170,8 @@ def _arc_twin(V, n_pts):
     rng = np.random.default_rng(7)
     pts, R_all, t_all, kp_xy, kp_valid, feat_of = arc_scene(rng, V, n_pts)
     pi, pj, matches = _matches(rng, feat_of, 512, 0)
-    pipe, pair_of = _pipeline(kp_xy, kp_valid, matches, pi, pj, 4096, seed=0)
-    state, done = _grow(pipe, pair_of, matches, [(0, 2), (0, 1), (0, 4)])
+    pipe = _pipeline(kp_xy, kp_valid, matches, pi, pj, 4096, seed=0)
+    state, done = _grow(pipe, [(0, 2), (0, 1), (0, 4)])
     assert len(done) == V, f"only {len(done)}/{V} views registered"
     state, _ = pipe._run_global_ba(state, anchor=0)
     state, _ = pipe._run_global_ba(state, anchor=0)
@@ -188,14 +183,12 @@ def _ring_twin(V, n_pts, sector_deg):
     rng = np.random.default_rng(11)
     pts, R_all, t_all, kp_xy, kp_valid, feat_of = ring_scene(rng, V, n_pts, sector_deg=sector_deg)
     pi, pj, matches = _matches(rng, feat_of, 384, 16)
-    pipe, pair_of = _pipeline(kp_xy, kp_valid, matches, pi, pj, 8192, seed=3)
-    state, done = _grow(pipe, pair_of, matches, [(0, 2), (0, 1), (0, 3)])
+    pipe = _pipeline(kp_xy, kp_valid, matches, pi, pj, 8192, seed=3)
+    state, done = _grow(pipe, [(0, 2), (0, 1), (0, 3)])
     assert len(done) == V, f"only {len(done)}/{V} ring views registered"
-    c = pipe._ctx
-    scores = score_pairs(
-        prng.key(99), matches, c["kp"].xy, pi, pj, c["K"], c["dist"], 640.0,
-        pipe.config,
-    )
+    c = pipe._inputs
+    scores = score_pairs(prng.key(99), matches, c.kp.xy, pi, pj, c.K, c.dist, 640.0, pipe.config)
+    pipe._inputs = dataclasses.replace(c, scores=scores)
     # The reference test's injected drift: a world-side rotation warp that
     # grows along the chain to 40 degrees, points re-triangulated under the
     # drifted poses and the observations it breaks pruned.
@@ -212,15 +205,13 @@ def _ring_twin(V, n_pts, sector_deg):
     f = float(state.focal)
     K_cur = torch.tensor([[f, 0.0, 320.0], [0.0, f, 240.0], [0.0, 0.0, 1.0]])
     drifted = retriangulate_points(
-        dataclasses.replace(state, cameras=torch.tensor(cams, dtype=torch.float32)), c["kp"].xy, K_cur
+        dataclasses.replace(state, cameras=torch.tensor(cams, dtype=torch.float32)), c.kp.xy, K_cur
     )
-    drifted = prune_observations(drifted, c["kp"].xy, K_cur, max_error_px=6.0)
+    drifted = prune_observations(drifted, c.kp.xy, K_cur, max_error_px=6.0)
     st_plain = drifted
     for _ in range(3):
         st_plain, _ = pipe._run_global_ba(st_plain, anchor=0)
-    st_avg = pipe._rotavg_initialize(
-        drifted, done, scores, pi, pj, c["tables"], c["kp"].xy, c["colors"], c["pp"], c["K"], c["dist"]
-    )
+    st_avg = pipe._rotavg_initialize(drifted, done)
     st_avg, _ = pipe._run_global_ba(st_avg, anchor=0, intermediate=True)
     st_avg, _ = pipe._run_global_ba(st_avg, anchor=0)
     ate_plain, ate_avg = _ate_frac(st_plain, R_all, t_all), _ate_frac(st_avg, R_all, t_all)

@@ -54,7 +54,7 @@ def _seed_runs(seed):
     out = {}
     for name, res, centers, n_keys in (
         ("jax", rj, j_centers(np.asarray(rj.state.cameras)), j_keys),
-        ("torch", rt, camera_centers(rt.state.cameras.numpy()), tpipe._key_n),
+        ("torch", rt, camera_centers(rt.state.cameras.numpy()), tpipe._progress.key_n),
     ):
         regs = sorted(res.registered_views)
         g = scene.centers[regs]

@@ -6,7 +6,8 @@ attributes, spans on the wall clock that torch.profiler stamps its events
 with, and threads that record apart. The same run with local-window BA
 and the rotation-averaging reinit switched on at V=6 holds the `reinit`
 span inside `final_ba`, the `reinit_applied` counter and the `ba` spans
-marked `local`.
+marked `local`. The V=6 run also holds the two seams the benchmark reads:
+the match tables left on the pipeline and `run_ba` looked up at call time.
 
 The traced run is the port's V=6 courtyard run of tests/test_torch_slice.py
 (240x320, 1,024 keypoints) on the CPU.
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from sfm_danpipeline_torch.config import BAConfig, FeatureConfig, PipelineConfig
+from sfm_danpipeline_torch.pipeline import sfm
 from sfm_danpipeline_torch.pipeline.sfm import SfMPipeline
 from sfm_danpipeline_torch.utils import profiling
 from sfm_danpipeline_torch.utils.synthscene import make_courtyard_scene
@@ -26,17 +28,31 @@ STAGES = ("features", "matching", "baseline", "incremental", "components", "fina
 
 
 @pytest.fixture(scope="module")
-def v6():
+def v6_run():
+    """The V=6 run's result, its pipeline and the number of `run_ba` calls
+    (a counting wrapper over `sfm.run_ba` for the run's length)."""
     scene = make_courtyard_scene(**V6_SCENE)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
+    real, calls = sfm.run_ba, [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    sfm.run_ba = counted
     try:
-        res = SfMPipeline(PipelineConfig(features=FeatureConfig(max_keypoints=V6_MAX_KEYPOINTS)), device="cpu").run(
-            scene.images, scene.intrinsics
-        )
+        pipe = SfMPipeline(PipelineConfig(features=FeatureConfig(max_keypoints=V6_MAX_KEYPOINTS)), device="cpu")
+        res = pipe.run(scene.images, scene.intrinsics)
     finally:
+        sfm.run_ba = real
         torch.set_num_threads(threads)
-    return res
+    return res, pipe, calls[0]
+
+
+@pytest.fixture(scope="module")
+def v6(v6_run):
+    return v6_run[0]
 
 
 def _by_name(trace, name):
@@ -85,6 +101,20 @@ def test_counters_and_their_spans(v6):
     ba = _by_name(v6.trace, "ba")
     assert len(ba) == c["ba_solves"] and sum(s["attrs"]["iterations"] for s in ba) == c["lm_iterations"]
     assert len(_by_name(v6.trace, "triangulate")) >= len(v6.registered_views) - 2
+
+
+def test_benchmark_seams_tables_and_run_ba(v6_run):
+    """The match tables' first three entries are the MatchTables fields
+    feat_a, feat_b, strict, each (V, V, M); every BA solve goes through
+    `sfm.run_ba` as looked up at call time."""
+    res, pipe, n_run_ba = v6_run
+    tables = pipe._ctx["tables"]
+    V, M = res.state.n_views, tables.feat_a.shape[-1]
+    first = tables[:3]
+    assert all(a is b for a, b in zip(first, (tables.feat_a, tables.feat_b, tables.strict)))
+    assert [tuple(t.shape) for t in first] == [(V, V, M)] * 3
+    assert tables.strict.dtype == torch.bool
+    assert n_run_ba == res.trace["counters"]["ba_solves"] > 0
 
 
 def test_finished_run_joins_the_recent_runs(v6):

@@ -5,9 +5,12 @@ a run of its SfMPipeline, and the same inputs as the port's arguments.
 run; `step_args` and `merge_args` turn a registration step's
 (`_register_adjust_step`) and a merge attempt's (`_merge_attempt_step`)
 arguments into keyword arguments of the port's `register_adjust_step` and
-`merge_attempt_step`. Imported by tools/seed_parity.py (`ring-step`,
-`merge-step`) and tests/test_torch_ring.py; needs JAX and torch.
+`merge_attempt_step`; `keys_taken` reads either package's key count.
+Imported by tools/seed_parity.py (`ring-step`, `merge-step`) and
+tests/test_torch_ring.py; needs JAX and torch.
 """
+from types import SimpleNamespace
+
 import numpy as np
 
 STATE_FIELDS = (
@@ -58,6 +61,12 @@ def _t(x):
     return torch.as_tensor(np.asarray(x))
 
 
+def keys_taken(pipe):
+    """The registration keys either package's SfMPipeline took in its last
+    run (the port keeps the count in its `SetProgress`)."""
+    return pipe._progress.key_n if hasattr(pipe, "_progress") else pipe._key_n
+
+
 def port_state(state):
     from sfm_danpipeline_torch import interop
 
@@ -72,6 +81,18 @@ def port_key(key):
     return interop.key_from_numpy(jax.random.key_data(key))
 
 
+def _inputs(config, xy, colors, pp, K, dist, max_dim, ft_a, ft_b, vt_strict, vt_loose=None):
+    """The reference's per-step arrays as the port's SetInputs."""
+    from sfm_danpipeline_torch.pipeline.incremental import MatchTables
+    from sfm_danpipeline_torch.pipeline.sfm import SetInputs
+
+    return SetInputs(
+        config=config, kp=SimpleNamespace(xy=_t(xy)), colors=_t(colors), K=_t(K), dist=_t(dist),
+        pp=_t(pp), max_dim=max_dim,
+        tables=MatchTables(_t(ft_a), _t(ft_b), _t(vt_strict), None if vt_loose is None else _t(vt_loose)),
+    )
+
+
 def step_args(a, config):
     """The reference's `_register_adjust_step` arguments `a` as keyword
     arguments of the port's `register_adjust_step` under `config`."""
@@ -79,9 +100,8 @@ def step_args(a, config):
     return dict(
         key=port_key(key), state=port_state(state), new_view=int(view),
         done_views=[int(v) for v in np.asarray(dv) if v >= 0],
-        tables=(_t(ft_a), _t(ft_b), _t(vt_strict), _t(vt_loose)), keypoints_xy=_t(xy),
-        colors=_t(colors), pp=_t(pp), K=_t(K), dist=_t(dist), image_max_dim=float(max_dim),
-        config=config, fix_cam=_t(a[15]), local_view=None if int(a[-1]) < 0 else int(a[-1]),
+        inputs=_inputs(config, xy, colors, pp, K, dist, float(max_dim), ft_a, ft_b, vt_strict, vt_loose),
+        fix_cam=_t(a[15]), local_view=None if int(a[-1]) < 0 else int(a[-1]),
     )
 
 
@@ -93,8 +113,8 @@ def merge_args(a, config):
         key=port_key(key), state_a=port_state(state_a), state_b=port_state(state_b),
         b_views=[int(v) for v in np.nonzero(np.asarray(b_mask))[0]],
         a_views=[int(v) for v in np.asarray(dv_a) if v >= 0],
-        tables=(_t(ft_a), _t(ft_b), _t(vt_strict)), keypoints_xy=_t(xy), colors=_t(colors),
-        pp=_t(pp), K=_t(K), dist=_t(dist), fix_cam=_t(fix), config=config,
+        inputs=_inputs(config, xy, colors, pp, K, dist, None, ft_a, ft_b, vt_strict),
+        fix_cam=_t(fix),
     )
 
 

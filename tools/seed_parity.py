@@ -443,7 +443,7 @@ def _print_ring_run(tag, res, pipe, scene, seed_log, merges):
     print(
         f"{tag}: seed pair ({m['baseline_pair_i']}, {m['baseline_pair_j']}), "
         f"{len(comp_seeds)} secondary component(s), rotavg_applied {m.get('rotavg_applied')}, "
-        f"{pipe._key_n} registration keys",
+        f"{ring_capture.keys_taken(pipe)} registration keys",
         flush=True,
     )
     for n, (views, ms) in enumerate(merges):
@@ -571,10 +571,10 @@ def ring_step(seed, view, prev=None):
         return 1
 
     def port_register(p, state):
-        ft_a, ft_b, vt_strict, vt_loose = p["tables"]
+        c = p["inputs"]
         _, ok, n_inl, n_sup = register_view(
-            p["key"], state, view, p["done_views"], ft_a, ft_b, vt_loose, p["keypoints_xy"], p["K"],
-            p["dist"], p["image_max_dim"], cfg, valid_tab_strict=vt_strict,
+            p["key"], state, view, p["done_views"], c.tables.feat_a, c.tables.feat_b, c.tables.loose,
+            c.kp.xy, c.K, c.dist, c.max_dim, cfg, valid_tab_strict=c.tables.strict,
         )
         return int(ok), int(n_inl), int(n_sup)
 
@@ -862,7 +862,7 @@ def bench(workload, seeds, packages, trail_dir):
                         print(
                             f"{tag}: registered {sorted(res.registered_views)}, {m['n_components']} component(s), "
                             f"{m['n_merged_components']} merged, rotavg_applied {m.get('rotavg_applied')}, "
-                            f"{pipe._key_n} registration keys",
+                            f"{ring_capture.keys_taken(pipe)} registration keys",
                             flush=True,
                         )
                         for views, ms in merges:
