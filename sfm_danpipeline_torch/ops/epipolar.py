@@ -25,7 +25,7 @@ from sfm_danpipeline_torch.ops.reduce import fixed_sum
 from sfm_danpipeline_torch.ops.select import top_k_indices
 from sfm_danpipeline_torch.ops.triangulation import pose_matrix, triangulate_dlt
 from sfm_danpipeline_torch.utils import profiling
-from sfm_danpipeline_torch.utils.cuda_graphs import cached_graph
+from sfm_danpipeline_torch.utils.cuda_graphs import CapturedChain, cached_graph
 
 
 class RelativePose(NamedTuple):
@@ -222,40 +222,10 @@ def _polish_eager(R0, t0, band0, x1, x2, valid, refit_n2):
     return R, t, band
 
 
-class _PolishGraph:
-    """`_polish_eager` captured as one CUDA graph at one input shape. Each
-    call copies its inputs into the graph's static buffers, replays, and
-    clones the outputs, which the next replay overwrites. The replay runs
-    the eager path's kernels in the same order on the same values, so its
-    outputs are the eager path's bit for bit. Made at a shape's second call:
-    the first, eager, has made jacfwd's first-call set-up and the cuBLAS /
-    cuSOLVER handles outside the capture."""
-
-    def __init__(self, *args):
-        x1 = args[3]
-        self.inputs = [torch.empty_like(a, memory_format=torch.contiguous_format) for a in args[:6]]
-        self.inputs.append(torch.empty((), dtype=x1.dtype, device=x1.device))  # refit_n2
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.outputs = _polish_eager(*self.inputs)
-        profiling.count("polish_graph_captures")
-
-    def __call__(self, *args):
-        # refit_n2 may be a Python float or a 0-dim tensor: `fill_` takes
-        # either, and a value captured as a kernel argument would not change
-        # on replay.
-        for dst, src in zip(self.inputs, args[:6]):
-            dst.copy_(src)
-        self.inputs[6].fill_(args[6])
-        self.graph.replay()
-        profiling.count("polish_graph_replays")
-        return tuple(o.clone() for o in self.outputs)
-
-
 # The polish's shapes of this process, (P, M, dtype, device index), the most
 # recently used last: a captured graph, or None for a shape seen once. Each
 # graph holds a private memory pool, so only the last few shapes are kept.
-_POLISH_GRAPHS: "OrderedDict[tuple, Optional[_PolishGraph]]" = OrderedDict()
+_POLISH_GRAPHS: "OrderedDict[tuple, Optional[CapturedChain]]" = OrderedDict()
 _POLISH_GRAPHS_KEPT = 4
 
 
@@ -275,8 +245,15 @@ def _polish(R0, t0, band0, x1, x2, valid, refit_n2):
     if x1.device.type != "cuda":
         return _polish_eager(*args)
     with torch.cuda.device(x1.device):
-        graph = _polish_graph((*x1.shape[:2], x1.dtype, x1.device.index), lambda: _PolishGraph(*args))
-        return _polish_eager(*args) if graph is None else graph(*args)
+        # `_polish_eager` as a graph: the six tensors copied in, refit_n2 (a
+        # Python float or a 0-dim tensor) filled into a 0-dim buffer.
+        graph = _polish_graph(
+            (*x1.shape[:2], x1.dtype, x1.device.index),
+            lambda: CapturedChain(
+                _polish_eager, args[:6], (x1.dtype,), "polish_graph_captures", "polish_graph_replays"
+            ),
+        )
+        return _polish_eager(*args) if graph is None else graph(args[:6], args[6:])
 
 
 def _best_polished(R, t, band, x1, x2, M1):

@@ -5,19 +5,34 @@ plausibility guards, src/Sfm.cpp:1137-1210): a pool of 6-point DLT and
 3-point P3P (multi-start Newton) hypotheses, two-stage MSAC selection, an
 8 px second-chance recount, two Gauss-Newton refinements, and the
 tight-consensus acceptance gate. Hypothesis batches are leading dims.
+
+On the card a solve is some 11,000 small ops whose host dispatch is their
+whole cost. It runs as draws -> DLT fit -> P3P Newton loop -> P3P
+Procrustes SVD -> select-refine-accept. The Newton loop (`_p3p_newton`) and
+select-refine-accept (`_select_refine_accept`, from the models to the
+acceptance gate) read nothing back to the host, so they replay as one CUDA
+graph each (~9,700 of the ops). The draws stay eager because the key lives
+on the host and `prng.fold_bits` reads back; the DLT fit and the Procrustes
+step stay eager because `torch.linalg.eigh` and `torch.linalg.svd` check
+their `info` on the host, which a capture refuses. A process's first solve
+runs eagerly (the warm-up: jacfwd's first call, the cuBLAS and cuSOLVER
+handles); after it every shape captures at its first call and replays after
+(`utils/cuda_graphs.py`). On the CPU every solve runs eagerly.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.func import jacfwd
 
 from sfm_danpipeline_torch.ops import prng
+from sfm_danpipeline_torch.ops.epipolar import _det3
 from sfm_danpipeline_torch.ops.lie import exp_so3, log_so3, rotate_point
 from sfm_danpipeline_torch.ops.ransac import sample_indices
 from sfm_danpipeline_torch.ops.select import top_k_indices
+from sfm_danpipeline_torch.utils.cuda_graphs import CapturedChain
 
 
 # RANSAC prescores every hypothesis on this many valid rows, then
@@ -76,18 +91,31 @@ _P3P_STARTS = np.array(
 )
 
 
-def _p3p_solve(X3: torch.Tensor, y3: torch.Tensor) -> torch.Tensor:
-    """Minimal 3-point pose, batched: X3 (H, 3, 3) world points, y3
-    (H, 3, 3) unit bearings -> (H, 7, 3, 4), one candidate per Newton
-    start (damped Newton on the depth-ratio system; failed starts return a
-    sentinel pose at translation 1e12 that scoring discards)."""
+# The starts on each device, made once outside any capture: made inside the
+# Newton loop they would be a host-to-device copy, which a capture refuses.
+_P3P_STARTS_ON: Dict[torch.device, torch.Tensor] = {}
+
+
+def _p3p_starts(device: torch.device) -> torch.Tensor:
+    starts = _P3P_STARTS_ON.get(device)
+    if starts is None:
+        starts = _P3P_STARTS_ON[device] = torch.as_tensor(_P3P_STARTS, device=device)
+    return starts
+
+
+def _p3p_newton(X3: torch.Tensor, y3: torch.Tensor, starts: torch.Tensor):
+    """Minimal 3-point pose, batched, up to its SVD: X3 (H, 3, 3) world
+    points, y3 (H, 3, 3) unit bearings. Damped Newton on the depth-ratio
+    system from each of the 7 `starts`, the residual gate, and each
+    candidate's Procrustes problem. Returns ok (H, 7), the world and camera
+    centroids cw, cc (H, 7, 3) and the cross-covariance C (H, 7, 3, 3);
+    `_p3p_procrustes` turns them into (H, 7, 3, 4) poses."""
     d12 = torch.sum((X3[:, 0] - X3[:, 1]) ** 2, -1)[:, None]
     d13 = torch.sum((X3[:, 0] - X3[:, 2]) ** 2, -1)[:, None]
     d23 = torch.sum((X3[:, 1] - X3[:, 2]) ** 2, -1)[:, None]
     c12 = torch.sum(y3[:, 0] * y3[:, 1], -1)[:, None]
     c13 = torch.sum(y3[:, 0] * y3[:, 2], -1)[:, None]
     c23 = torch.sum(y3[:, 1] * y3[:, 2], -1)[:, None]
-    starts = torch.as_tensor(_P3P_STARTS, device=X3.device)
     H = X3.shape[0]
     u = starts[:, 0].expand(H, -1)
     v = starts[:, 1].expand(H, -1)
@@ -126,12 +154,19 @@ def _p3p_solve(X3: torch.Tensor, y3: torch.Tensor) -> torch.Tensor:
     cw = torch.mean(Xw, dim=-2)
     cc = torch.mean(P, dim=-2)
     C = (P - cc[..., None, :]).transpose(-1, -2) @ (Xw - cw[..., None, :])
+    return ok, cw, cc, C
+
+
+def _p3p_procrustes(ok, cw, cc, C) -> torch.Tensor:
+    """The tail of the minimal 3-point pose: each candidate's rotation from
+    the SVD of its cross-covariance; a failed start returns a sentinel pose
+    at translation 1e12 that scoring discards."""
     U, _, Vh = torch.linalg.svd(C)
     sgn = torch.sign(torch.linalg.det(U @ Vh))
     diag = torch.stack([torch.ones_like(sgn), torch.ones_like(sgn), sgn], dim=-1)
     R = (U * diag[..., None, :]) @ Vh
     t = cc - (R @ cw[..., None])[..., 0]
-    eye = torch.eye(3, dtype=X3.dtype, device=X3.device)
+    eye = torch.eye(3, dtype=cw.dtype, device=cw.device)
     R = torch.where(ok[..., None, None], R, eye)
     t = torch.where(ok[..., None], t, torch.full_like(t, 1e12))
     return torch.cat([R, t[..., None]], dim=-1)
@@ -196,6 +231,112 @@ def pnp_sample_draws(
     return idx6, torch.cat([idx3a, idx3b])
 
 
+def _select_refine_accept(models, X, px, valid, score_w, order, K, threshold_px,
+                          min_support: int, max_translation: float):
+    """Everything after the models are built: the two-stage MSAC pick (every
+    hypothesis prescored on the rows `order`, the best 384 full-scored),
+    the 8 px second chance, both Gauss-Newton refinements and the acceptance
+    gate. Returns (R, t, inliers, n_inliers, ok). Every index is a gather at
+    a device index, so the chain reads nothing back to the host."""
+    # Two-stage MSAC: prescore every hypothesis on the prescore rows,
+    # full-score the top 384; strict rows weigh double.
+    sub_valid = valid[order]
+    pres = torch.clamp(_reproj_errors_px(models, X[order], px[order], K), max=1e9)
+    pres = torch.where(sub_valid[None, :], pres, torch.zeros_like(pres))
+    pre_scores = torch.sum(score_w[order][None, :] * torch.clamp(pres, max=threshold_px), dim=-1)
+    T = min(384, models.shape[0])
+    top = top_k_indices(-pre_scores, T)
+    res = torch.clamp(_reproj_errors_px(models[top], X, px, K), max=1e9)
+    res = torch.where(valid[None, :], res, torch.zeros_like(res))
+    scores = torch.sum(score_w[None, :] * torch.clamp(res, max=threshold_px), dim=-1)
+    best = torch.argmin(scores).reshape(1)
+    Rt = models.index_select(0, top.index_select(0, best))[0]
+    inliers = (res.index_select(0, best)[0] < threshold_px) & valid
+    n_in = torch.sum(inliers)
+
+    # Second chance: thin support is recounted at 8 px.
+    loose = (_reproj_errors_px(Rt, X, px, K) < 8.0) & valid
+    use_loose = n_in < torch.clamp(torch.div(torch.sum(valid), 5, rounding_mode="floor"), min=10)
+    inliers = torch.where(use_loose, loose, inliers)
+
+    R, t = _gauss_newton_refine(Rt[:, :3], Rt[:, 3], X, px, K, inliers.to(X.dtype))
+    err1 = _reproj_errors_px(torch.cat([R, t[:, None]], -1), X, px, K)
+    w2 = ((err1 < 8.0) & valid).to(X.dtype)
+    R, t = _gauss_newton_refine(R, t, X, px, K, w2)
+    err = _reproj_errors_px(torch.cat([R, t[:, None]], -1), X, px, K)
+    # Acceptance: the tight consensus only.
+    inliers = (err < threshold_px) & valid
+    n_in = torch.sum(inliers)
+    center = -R.T @ t
+    ok = (
+        (torch.abs(_det3(R) - 1.0) < 1e-3)
+        & (torch.linalg.norm(center) <= max_translation)
+        & (n_in >= min_support)
+    )
+    return R, t, inliers, n_in, ok
+
+
+# The process's PnP graphs, kept for the process: `_NEWTON_GRAPHS` keyed by
+# (H_p3p, dtypes, device index), one per process; `_SELECT_GRAPHS` by (M, H,
+# S, dtypes, device index, the gate's two constants), one per done-view count
+# the sets reach. They draw on one memory pool per device (`_POOLS`), so a
+# graph costs little more than its static inputs and outputs, and since none
+# is freed the pool lives as long as the process.
+_NEWTON_GRAPHS: Dict[tuple, CapturedChain] = {}
+_SELECT_GRAPHS: Dict[tuple, CapturedChain] = {}
+_POOLS: Dict[int, tuple] = {}
+# The devices on which this process has run a solve eagerly: from then on a
+# shape captures at its first call.
+_WARM: set = set()
+
+
+def _run_chains(models6, p3p_in, select_in, gate, newton=None, select=None):
+    """The solve after the draws and the DLT fit: the P3P Newton loop
+    (replayed by `newton` where given), the Procrustes SVD (eager), then
+    select-refine-accept (replayed by `select` where given)."""
+    head = _p3p_newton(*p3p_in, _p3p_starts(p3p_in[0].device)) if newton is None else newton(p3p_in)
+    models = torch.cat([models6, _p3p_procrustes(*head).reshape(-1, 3, 4)])
+    tensors, threshold_px = (models, *select_in[:-1]), select_in[-1]
+    if select is None:
+        return _select_refine_accept(*tensors, threshold_px, *gate)
+    return select(tensors, (threshold_px,))
+
+
+def _replay_chains(models6, p3p_in, select_in, gate):
+    """`_run_chains` on the card: the process's first solve eagerly, after it
+    each chain replayed from its graph, captured at the shape's first call
+    (`utils/cuda_graphs.py`)."""
+    dev = p3p_in[0].device
+    if dev.index not in _WARM:
+        out = _run_chains(models6, p3p_in, select_in, gate)
+        _WARM.add(dev.index)
+        return out
+    if dev.index not in _POOLS:
+        _POOLS[dev.index] = torch.cuda.graph_pool_handle()
+    pool = _POOLS[dev.index]
+    newton_key = (p3p_in[0].shape[0], *(a.dtype for a in p3p_in), dev.index)
+    if newton_key not in _NEWTON_GRAPHS:
+        starts = _p3p_starts(dev)
+        _NEWTON_GRAPHS[newton_key] = CapturedChain(
+            lambda X3, y3: _p3p_newton(X3, y3, starts), p3p_in, (), "pnp_graph_captures", pool=pool,
+        )
+    X = select_in[0]
+    models_shape = (models6.shape[0] + 7 * p3p_in[0].shape[0], 3, 4)
+    select_key = (
+        X.shape[0], models_shape[0], select_in[4].shape[0],
+        models6.dtype, *(a.dtype for a in select_in[:-1]), dev.index, *gate,
+    )
+    if select_key not in _SELECT_GRAPHS:
+        _SELECT_GRAPHS[select_key] = CapturedChain(
+            lambda *a: _select_refine_accept(*a, *gate),
+            (models6.new_empty(models_shape), *select_in[:-1]), (X.dtype,),
+            "pnp_graph_captures", "pnp_graph_replays", pool,
+        )
+    return _run_chains(
+        models6, p3p_in, select_in, gate, _NEWTON_GRAPHS[newton_key], _SELECT_GRAPHS[select_key]
+    )
+
+
 def solve_pnp_ransac(
     key: Optional[torch.Tensor],
     X: torch.Tensor,
@@ -221,18 +362,17 @@ def solve_pnp_ransac(
     valid rows of `sample_mask` (then the other valid rows), a departure
     from the reference: registration orders its loose-only rows first, and
     where more than 256 of them are outliers the reference's subset holds
-    no true row, so every hypothesis the prescore keeps is wrong."""
+    no true row, so every hypothesis the prescore keeps is wrong.
+
+    On the card the Newton loop and select-refine-accept replay as CUDA
+    graphs (module docstring)."""
     idx6, idx3 = samples if samples is not None else pnp_sample_draws(
         key, valid, n_hypotheses, sample_size, sample_mask
     )
     models6 = _dlt_pnp(X[idx6], xn[idx6])
     h = torch.cat([xn, torch.ones_like(xn[:, :1])], dim=-1)
     y = h / torch.linalg.norm(h, dim=-1, keepdim=True)
-    models3 = _p3p_solve(X[idx3], y[idx3])
-    models = torch.cat([models6, models3.reshape(-1, 3, 4)])
 
-    # Two-stage MSAC: prescore every hypothesis on the first 256 valid
-    # rows, full-score the top 384; strict rows weigh double.
     score_w = (
         1.0 + (sample_mask & valid).to(X.dtype) if sample_mask is not None
         else torch.ones_like(valid, dtype=X.dtype)
@@ -242,37 +382,13 @@ def solve_pnp_ransac(
     if prescore_strict_first and sample_mask is not None:
         rank = rank * 2 + (~sample_mask).to(torch.int8)
     order = torch.argsort(rank, stable=True)[:S]
-    sub_valid = valid[order]
-    pres = torch.clamp(_reproj_errors_px(models, X[order], px[order], K), max=1e9)
-    pres = torch.where(sub_valid[None, :], pres, torch.zeros_like(pres))
-    pre_scores = torch.sum(score_w[order][None, :] * torch.clamp(pres, max=threshold_px), dim=-1)
-    T = min(384, models.shape[0])
-    top = top_k_indices(-pre_scores, T)
-    res = torch.clamp(_reproj_errors_px(models[top], X, px, K), max=1e9)
-    res = torch.where(valid[None, :], res, torch.zeros_like(res))
-    scores = torch.sum(score_w[None, :] * torch.clamp(res, max=threshold_px), dim=-1)
-    best = torch.argmin(scores)
-    Rt = models[top[best]]
-    inliers = (res[best] < threshold_px) & valid
-    n_in = torch.sum(inliers)
 
-    # Second chance: thin support is recounted at 8 px.
-    loose = (_reproj_errors_px(Rt, X, px, K) < 8.0) & valid
-    use_loose = n_in < torch.clamp(torch.div(torch.sum(valid), 5, rounding_mode="floor"), min=10)
-    inliers = torch.where(use_loose, loose, inliers)
-
-    R, t = _gauss_newton_refine(Rt[:, :3], Rt[:, 3], X, px, K, inliers.to(X.dtype))
-    err1 = _reproj_errors_px(torch.cat([R, t[:, None]], -1), X, px, K)
-    w2 = ((err1 < 8.0) & valid).to(X.dtype)
-    R, t = _gauss_newton_refine(R, t, X, px, K, w2)
-    err = _reproj_errors_px(torch.cat([R, t[:, None]], -1), X, px, K)
-    # Acceptance: the tight consensus only.
-    inliers = (err < threshold_px) & valid
-    n_in = torch.sum(inliers)
-    center = -R.T @ t
-    ok = (
-        (torch.abs(torch.linalg.det(R) - 1.0) < 1e-3)
-        & (torch.linalg.norm(center) <= max_translation)
-        & (n_in >= max(sample_size, min_inliers))
-    )
-    return PnPResult(R=R, t=t, inliers=inliers, n_inliers=n_in, ok=ok)
+    p3p_in = (X[idx3], y[idx3])
+    select_in = (X, px, valid, score_w, order, K, threshold_px)
+    gate = (max(sample_size, min_inliers), max_translation)
+    if X.device.type != "cuda":
+        out = _run_chains(models6, p3p_in, select_in, gate)
+    else:
+        with torch.cuda.device(X.device):
+            out = _replay_chains(models6, p3p_in, select_in, gate)
+    return PnPResult(*out)
